@@ -1,8 +1,8 @@
-"""dsp_stuff_tpu — a TPU-native batched DSP-graph framework.
+"""dsp_stuff_tpu — a batched DSP-graph framework for accelerators.
 
 A ground-up rebuild of the capabilities of simmsb/dsp-stuff (a desktop,
 real-time, node-based audio effects application written in Rust) as a
-TPU-first batched DSP pipeline in JAX.
+batched DSP pipeline in JAX, run on NVIDIA GPUs.
 
 Where the reference runs one tokio task per node exchanging 128-sample
 blocks through lock-free SPSC ring buffers (reference: dsp-stuff/src/node.rs,
@@ -11,7 +11,7 @@ vectorized over the full sample axis (elementwise chains fuse into single XLA
 kernels, IIR recurrences lower to associative scans), and only feedback
 cycles are wrapped in a `lax.scan` over 128-sample blocks, which reproduces
 the reference's one-block feedback latency. Streams batch over a leading
-axis via `vmap`, and shard over TPU meshes via `jax.sharding`.
+axis via `vmap`, and shard over device meshes via `jax.sharding`.
 
 Public API:
     Graph, load_graph, save_graph      -- graph IR + reference JSON compat

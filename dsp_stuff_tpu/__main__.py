@@ -159,6 +159,8 @@ def main(argv=None):
     dp.add_argument("--seconds", type=float, default=1.0)
 
     args = ap.parse_args(argv)
+    from dsp_stuff_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     {"nodes": _cmd_nodes, "render": _cmd_render, "fit": _cmd_fit,
      "inspect": _cmd_inspect, "debug": _cmd_debug}[args.cmd](args)
 

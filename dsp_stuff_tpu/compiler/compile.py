@@ -360,9 +360,8 @@ def _chorus_mega_geo(node):
 def _plan_mega_fusion(graph: Graph, nodes: dict, sccs) -> list:
     """Maximal ACYCLIC chains of mega-fusable nodes (the linear kinds +
     distort/overdrive/chebyshev at base rate + reverb) joined by chain
-    links, evaluated as ONE ops/chain_segment (the Pallas megakernel on
-    TPU at batch: one signal read + one write across the whole run;
-    elsewhere an equivalent stage composition).
+    links, evaluated as ONE ops/chain_segment (a stage composition with
+    the fan-in scales between members folded into it).
 
     The chain joint out of a member is the ONE out-link into another
     mega-fusable node's sole-source "in" port (two distinct candidates
@@ -372,7 +371,7 @@ def _plan_mega_fusion(graph: Graph, nodes: dict, sccs) -> list:
     the run) no longer end the chain: the segment EMITS that
     intermediate with a ("tap", ti) stage — the reference's fan-out
     duplication (node.rs:321-325) — so a mid-chain wave_view no longer
-    costs a full extra HBM round-trip at batch.  A run must have >= 2
+    splits the segment.  A run must have >= 2
     nodes, >= 1 stateful member and >= 1 non-linear member (pure-linear
     runs belong to _plan_linear_fusion's richer handling,
     pure-elementwise ones to XLA fusion)."""
@@ -596,8 +595,8 @@ def compile_graph(graph: Graph, block_size: int = 128,
     sccs = condensation_topo_order(sorted(nodes), edges)
 
     # structural plans: chain segments first (linear cascades +
-    # elementwise shapers + combs as ONE op, ops/chain_segment.py — the
-    # Pallas megakernel on TPU), then linear-run fusion (ops/cascade.py)
+    # elementwise shapers + combs as ONE op, ops/chain_segment.py), then
+    # linear-run fusion (ops/cascade.py)
     # over the remaining nodes (tapped intermediates are emitted from
     # the solve).  Dynamic preconditions (fast policy, no NODE_HOOK,
     # concrete params, no fit overrides) are re-checked per trace.
@@ -749,9 +748,8 @@ def compile_graph(graph: Graph, block_size: int = 128,
         splits there) and a ("tap", ti) stage emits the flow — the
         segment publishes it like a normal node output.
 
-        Two boundary scale folds keep the kernel's one-read-one-write
-        property end to end (each avoided _avg is a full-signal HBM
-        round-trip, ~2.4 ms at batch 512 x 10 s):
+        Two boundary scale folds save a full-signal pass each (an
+        _avg is a divide over the whole signal):
           * ``head_single`` — the head has exactly one in-link, so its
             fan-in scale seeds the pending scale (usually folding into
             the first cascade's gain section) and the eval skips _avg;
@@ -1009,7 +1007,7 @@ def compile_graph(graph: Graph, block_size: int = 128,
         from dsp_stuff_tpu.ops.cascade import SECTION_DIMS, MAX_RUN_DIM
         from dsp_stuff_tpu.ops.delay_line import delay_samples
         if block_size != 128:
-            return None        # kernel/interpreter block frame is 128
+            return None        # the block program's frame is 128
         order = sorted(comp)
         comp_set = set(order)
 
@@ -1410,9 +1408,8 @@ def compile_graph(graph: Graph, block_size: int = 128,
 
         # cycle mega path: when every member lowers to the block program
         # (and the dynamic gates hold), the whole SCC evaluates as ONE
-        # ops/cycle_segment — the Pallas cycle kernel on TPU at batch,
-        # an unrolled scan interpreter elsewhere — instead of the
-        # per-node scan below
+        # ops/cycle_segment, an unrolled scan over blocks, instead of
+        # the per-node scan below
         from dsp_stuff_tpu.utils import precision as _prec
         if (CYCLE_FUSION and NODE_HOOK is None
                 and _prec.get_policy().name == "fast"):
@@ -1562,10 +1559,8 @@ def compile_graph(graph: Graph, block_size: int = 128,
         ckey = _cycle_key(comp)
         prev0 = {kp: state[ckey][f"{kp[0]}:{kp[1]}"] for kp in member_ports}
         # unrolling amortizes the XLA while-loop per-iteration overhead,
-        # which dominated the feedback path (measured on the 16-node
-        # benchmark graph at 128 streams: unroll 1/4/8/16 -> 2248/6476/
-        # 9510/12398x real-time; 16 costs ~6 min of compile, so 8 is the
-        # default sweet spot)
+        # which dominates a feedback path of many short blocks; larger
+        # unrolls cost compile time roughly in proportion
         (st_f, prev_f), ys = jax.lax.scan(body, (st0, prev0),
                                           (ext_feeds, ext_ins),
                                           length=nb,

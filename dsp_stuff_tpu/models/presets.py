@@ -1,8 +1,11 @@
-"""Preset graphs: the five BASELINE.json benchmark configurations.
+"""Preset graphs: the 10-node benchmark chain and the five BASELINE.json
+benchmark configurations.
 
 Each builder returns (graph, meta) where meta maps role -> node id
 ("input", "outputs", ...).  These double as the model zoo, the example
 graphs, and the shapes the judge's configs name:
+
+0. the 10-node effect chain (the headline benchmark graph)
 
 1. gain -> biquad low-pass chain (offline block render)
 2. delay/echo + chorus chain (modulated fractional taps)
@@ -21,6 +24,30 @@ from dsp_stuff_tpu.ids import IdSpace
 
 def _g() -> Graph:
     return Graph(IdSpace())
+
+
+def chain10(reverb_seconds: float = 0.05):
+    """The 10-node effect chain, every node at a non-bypass setting:
+
+        input -> gain -> biquad -> overdrive -> low_pass -> high_pass
+              -> distort(Tanh) -> chebyshev -> reverb -> output
+
+    tests/oracle.chain10 is its sequential NumPy reference."""
+    g = _g()
+    inp = g.add("input")
+    gn = g.add("gain", level=1.2)
+    bq = g.add("biquad", a0=1.0, a1=-0.24, a2=0.0, b0=0.758, b1=0.0, b2=0.0)
+    od = g.add("overdrive", boost=4.0, drive=0.6, level=0.9)
+    lp = g.add("low_pass", ratio=0.6)
+    hp = g.add("high_pass", ratio=0.2)
+    dt = g.add("distort", mode="Tanh", level=3.0)
+    ch = g.add("chebyshev", level_pos=2.0, level_neg=4.0)
+    rv = g.add("reverb", seconds=reverb_seconds, decay=0.4)
+    out = g.add("output")
+    g.chain(inp, gn, bq, od, lp, hp, dt, ch, rv, out)
+    return g, {"input": inp.id, "output": out.id,
+               "members": [gn.id, bq.id, od.id, lp.id, hp.id, dt.id,
+                           ch.id, rv.id]}
 
 
 def config1_gain_biquad():

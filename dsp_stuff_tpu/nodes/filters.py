@@ -164,8 +164,7 @@ class Fir:
     The global sample counter ``n_seen`` is LOCKSTEP state (all streams
     of a batched render advance together), so it stays a shared scalar
     under vmap — which keeps the warm-up machinery's gathers on shared
-    1-D indices (whole-row fetches; per-row indices measured ~200 ms of
-    a batch-256 config4 render, the per-element-gather pathology)."""
+    1-D indices (whole-row fetches instead of per-element gathers)."""
 
     shared_state_keys = ("n_seen",)
 

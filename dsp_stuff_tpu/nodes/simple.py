@@ -1,7 +1,7 @@
 """Stateless combinator nodes: Gain, Add, Mix, Mux, Demux.
 
 These are single-expression elementwise ops; XLA fuses chains of them into
-one kernel, so each costs ~zero beyond the HBM traffic of its neighbors.
+one kernel, so each costs ~zero beyond the memory traffic of its neighbors.
 """
 
 from __future__ import annotations

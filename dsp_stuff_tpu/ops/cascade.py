@@ -3,10 +3,9 @@ BiQuad).
 
 The reference runs each node as its own task over its own ring
 (runtime.rs node tasks); here a maximal run of linear nodes in the
-acyclic part of the graph fuses into ONE blocked solve.  Rationale: at
-batch 512 each blocked recurrence op is HBM-pass-bound (~1.6x the copy
-floor on v5e), so two chained filters cost two full read+GEMM+write
-rounds, and even a stateless Gain between einsum consumers costs a
+acyclic part of the graph fuses into ONE blocked solve.  Rationale: two
+chained filters would cost two full read+GEMM+write rounds over the
+signal, and even a stateless Gain between einsum consumers costs a
 materialized full-signal pass.
 
 Every section is a linear state-space system in the DELAYED-state
@@ -60,11 +59,8 @@ SECTION_DIMS = {"gain": 0, "lp": 1, "hp": 1, "bq": 2}
 
 #: composite state-dimension cap for fused runs (the vecN carry chain;
 #: odd dims embed into the next power of two).  8 admits a 4-biquad EQ
-#: stack as ONE solve: measured at batch 512 x 10 s on v5e (tools/
-#: measure_rundim.py) the dim-8 solve beats the dim-4 2+2 split 1.42x
-#: (64.5 vs 91.8 ms; 317,577 vs 222,989 aggregate audio-s/s) -- the
-#: [C, 8] ends mat-vec is noise next to the whole second solver round
-#: it removes.
+#: stack as ONE solve: the [C, 8] ends mat-vec is small next to the
+#: whole second solver round a 4+4 split would add.
 MAX_RUN_DIM = 8
 
 
@@ -142,11 +138,9 @@ def _embedN(A, B, C, N: int):
 
 
 def _output_taps(Cv, D, P, B, C: int):
-    """(Ltg [C, C], E [C, N], l1) output constants for a readout (C, D)
+    """(Ltg [C, C], E [C, N]) output constants for a readout (C, D)
     over the shared state powers P: Ltg from g[0] = D, g[d] = C A^(d-1) B;
-    E[d] = C A^d maps the chunk-entry carry to sample d's output; l1 is
-    the tap-row bound for the bf16x3 GEMM eligibility
-    (utils.precision.gemm_precision)."""
+    E[d] = C A^d maps the chunk-entry carry to sample d's output."""
     g = np.empty(C, np.float64)
     g[0] = D
     g[1:] = np.einsum("i,dij,j->d", Cv, P[: C - 1], B)
@@ -154,7 +148,7 @@ def _output_taps(Cv, D, P, B, C: int):
     diff = i[None, :] - i[:, None]
     Ltg = np.where(diff >= 0, g[np.clip(diff, 0, C - 1)], 0.0)  # [C, C]
     E = np.einsum("i,dij->dj", Cv, P[:C])              # carry->y    [C, N]
-    return Ltg, E, float(np.abs(g).sum())
+    return Ltg, E
 
 
 @functools.lru_cache(maxsize=128)
@@ -181,7 +175,7 @@ def _cascade_constants(sections: tuple, C: int, emits: tuple = ()):
     for t in range(1, C + 1):
         P[t] = A @ P[t - 1]
 
-    Ltg, E, l1 = _output_taps(Cv, D, P, B, C)
+    Ltg, E = _output_taps(Cv, D, P, B, C)
 
     f32 = np.float32
     emit_consts = []
@@ -189,10 +183,10 @@ def _cascade_constants(sections: tuple, C: int, emits: tuple = ()):
         Ae, Be, Ce, De = compose_sections(sections[: i + 1])
         Ce_ext = np.zeros((N,), np.float64)
         Ce_ext[: Ce.shape[0]] = Ce
-        Lte, Ee, l1e = _output_taps(Ce_ext, De, P, B, C)
-        emit_consts.append((Lte.astype(f32), Ee.astype(f32), l1e))
+        Lte, Ee = _output_taps(Ce_ext, De, P, B, C)
+        emit_consts.append((Lte.astype(f32), Ee.astype(f32)))
 
-    return (Ltg.astype(f32), W_ends(P, B, C), E.astype(f32), P, N, B, l1,
+    return (Ltg.astype(f32), W_ends(P, B, C), E.astype(f32), P, N, B,
             tuple(emit_consts))
 
 
@@ -223,21 +217,18 @@ def linear_cascade(x, sections: tuple, s_init, emits: tuple = ()):
     T = x.shape[-1]
     batch = x.shape[:-1]
 
-    Ltg, W, E, P, N, B, l1, emit_consts = _cascade_constants(
+    Ltg, W, E, P, N, B, emit_consts = _cascade_constants(
         sections, C, tuple(emits))
     s_init = jnp.broadcast_to(jnp.asarray(s_init, f32), (*batch, N))
     hi = jax.lax.Precision.HIGHEST
-    from dsp_stuff_tpu.utils.precision import gemm_precision
-    gp = gemm_precision(l1)
 
     K = -(-T // C)
     pad = K * C - T
     xp = jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, pad)])
     X = xp.reshape(*batch, K, C)
 
-    # chunk-end states: one [C, N] side mat-vec over x (HIGHEST: the
-    # mat-vec is bandwidth-bound -- no MXU win from bf16x3 -- and it
-    # seeds the carry chain)
+    # chunk-end states: one [C, N] side mat-vec over x (it seeds the
+    # carry chain)
     AC = P[C].astype(np.float32)
     ends = jnp.einsum("...kc,cb->...kb", X, jnp.asarray(W),
                       preferred_element_type=f32, precision=hi)  # [...,K,N]
@@ -248,17 +239,16 @@ def linear_cascade(x, sections: tuple, s_init, emits: tuple = ()):
     carry_in = jnp.concatenate([s_init[..., None, :], S[..., :-1, :]],
                                axis=-2)                          # [..., K, N]
 
-    def readout(Lt, Ev, prec):
+    def readout(Lt, Ev):
         o = jnp.einsum("...kc,cd->...kd", X, jnp.asarray(Lt),
-                       preferred_element_type=f32, precision=prec) \
+                       preferred_element_type=f32, precision=hi) \
             + jnp.einsum("...kb,db->...kd", carry_in, jnp.asarray(Ev),
                          preferred_element_type=f32, precision=hi)
         return o.reshape(*batch, K * C)[..., :T].astype(f32)
 
     # y = combined-taps GEMM + carried-state epilogue (fused by XLA)
-    y = readout(Ltg, E, gp)
-    emit_sigs = tuple(readout(Lte, Ee, gemm_precision(l1e))
-                      for Lte, Ee, l1e in emit_consts)
+    y = readout(Ltg, E)
+    emit_sigs = tuple(readout(Lte, Ee) for Lte, Ee in emit_consts)
 
     # composite states entering samples T-1 and T-2, for the per-node
     # state rebuild: one masked [C, N] mat-vec each over the owning
@@ -317,9 +307,9 @@ def cascade_tail_states(sections, x_last, carry_last, C: int = 128):
     composite state entering that chunk is ``carry_last`` [..., N]
     (requires T % C == 0, so both samples live in the last chunk).
 
-    The megakernel (ops/pallas_chain.py) emits (carry_last, x_last) per
-    cascade stage; this reproduces linear_cascade's in-graph ``s_at``
-    readout on the host side so per-node states rebuild identically."""
+    The cycle block program (ops/cycle_segment.py) keeps (carry_last,
+    x_last) per cascade stage; this reproduces linear_cascade's in-graph
+    ``s_at`` readout so per-node states rebuild identically."""
     f32 = jnp.float32
     hi = jax.lax.Precision.HIGHEST
     (P1, T1), (P2, T2), N = _tail_state_constants(tuple(sections), C)

@@ -1,15 +1,13 @@
 """Fused chain segments: linear cascades + elementwise shapers + feedback
-combs composed as ONE op, with a single-HBM-pass Pallas megakernel on TPU.
+combs composed as ONE op over a maximal sole-consumer run of nodes.
 
 The reference runs every node as its own task (runtime.rs:718-728); the
-r3 linear-run fusion (ops/cascade.py) already collapses adjacent LINEAR
-nodes, but a 10-node chain still pays one full signal read+write per
-remaining stage — at batch 512 the aggregate path measured 8.8% of the
-pure-I/O HBM floor with every stage individually ~1.5-3x its copy time.
-A chain segment stitches the stages of a maximal sole-consumer run into
-one kernel where a [BT, 128] block stays resident in VMEM across every
-stage (ops/pallas_chain.py): the whole segment costs one signal read +
-one write.
+linear-run fusion (ops/cascade.py) already collapses adjacent LINEAR
+nodes.  A chain segment goes further: the compiler plans the whole run
+as one stage list, folding the fan-in scales between members into it
+(a fan-in divide is otherwise a full-signal pass of its own), and this
+module evaluates the list stage by stage through the per-op lowerings,
+so XLA sees one straight-line program to fuse.
 
 Stage descriptors (static tuples; the compiler builds them in
 ``_plan_mega_fusion`` / ``_mega_run_eval``):
@@ -28,8 +26,7 @@ Stage descriptors (static tuples; the compiler builds them in
                                  output with extra consumers — the
                                  reference's fan-out duplication,
                                  node.rs:321-325; a mid-chain tap no
-                                 longer splits the segment into two
-                                 HBM passes)
+                                 longer splits the segment in two)
     ("mtap", mix, L, NH, EV, RS)
                               -- sine-modulated fractional-delay tap
                                  (the chorus, ops/modfx.py) on the
@@ -50,34 +47,18 @@ Stage descriptors (static tuples; the compiler builds them in
     comb_hists    -- per comb stage the new [..., D] history;
     taps          -- tuple of [..., T] emitted sequences, tap order.
 
-Dispatch: the unbatched call and every non-TPU / small-batch case run
-the FALLBACK -- a stage-by-stage composition of the existing lowerings
-(linear_cascade / shaping fns / feedback_comb), identical semantics,
-differentiable, works everywhere.  A vmapped call with B >= 64 on a TPU
-backend runs the Pallas megakernel (DST_PALLAS=0 disables, same policy
-as the chunk-parallel envelope).  Gradients: custom_vjp whose backward
-is the fallback's VJP (the megakernel and the fallback agree to f32
-rounding, same contract as the other fast-policy lowerings).
+The composition is plain differentiable JAX: it batches under vmap
+(the mtap trajectory operands stay unbatched, as the lockstep clock
+computes them) and differentiates without a custom rule.
 """
 
 from __future__ import annotations
 
-import functools
-import os
-
-import jax
 import jax.numpy as jnp
-import numpy as np
 
 from dsp_stuff_tpu.ops import shaping
-from dsp_stuff_tpu.ops.cascade import linear_cascade, cascade_tail_states
+from dsp_stuff_tpu.ops.cascade import linear_cascade
 from dsp_stuff_tpu.ops.delay_line import feedback_comb
-
-# ring-residency budgeting moved to ops/pallas_chain.pick_bt /
-# vmem_limit_for: big rings now keep the full batch tile under a
-# computed scoped-VMEM limit (96 MiB cap) instead of the old flat
-# 6 MiB budget that halved the tile (config2) or lost the fusion
-# (combs past ~1.5 s)
 
 
 def _ew_fn(kind: str):
@@ -96,14 +77,15 @@ def _ew_fn(kind: str):
 
 
 def apply_ew(kind: str, v, params):
-    """One elementwise stage on ``v`` (used by both the fallback and the
-    Pallas kernel body -- the shaping fns are pure jnp, so they trace
-    inside a kernel on a VMEM-resident block unchanged)."""
+    """One elementwise stage on ``v`` (chain segments and the cycle
+    block program share it)."""
     return _ew_fn(kind)(v, *(jnp.float32(p) for p in params))
 
 
-def segment_fallback(x, stages: tuple, state_in: tuple):
-    """Stage-by-stage composition via the existing per-op lowerings."""
+def chain_segment(x, stages, state_in):
+    """Fused evaluation of a stage chain over ``x`` [..., T] (see the
+    module docstring for the stage grammar and returns): a stage-by-stage
+    composition of the per-op lowerings."""
     f32 = jnp.float32
     v = jnp.asarray(x, f32)
     si = 0
@@ -138,132 +120,3 @@ def segment_fallback(x, stages: tuple, state_in: tuple):
         else:
             raise ValueError(f"unknown stage {st[0]!r}")
     return v, tuple(cinfos), tuple(hists), tuple(taps)
-
-
-def _use_kernel(B: int, T: int, stages) -> bool:
-    from dsp_stuff_tpu.ops.scan import _tpu_backend
-    if os.environ.get("DST_PALLAS") == "0" or not _tpu_backend():
-        return False
-    if B < 64 or T % 128 or T < 256:
-        return False
-    for st in stages:
-        if st[0] == "comb" and st[2] < 128:
-            return False            # intra-block feedback: comb unchunkable
-    # ring residency: pick_bt promotes the batch tile to 256 for
-    # 256-multiple batches, keeps the full tile for big rings via a
-    # computed scoped-VMEM limit, and halves only past the 96 MiB cap;
-    # None = no tile fits, run the fallback composition
-    from dsp_stuff_tpu.ops.pallas_chain import pick_bt
-    return pick_bt(tuple(stages), B) is not None
-
-
-def _segment_batched(x, stages: tuple, state_in: tuple):
-    """Explicit [B, T] implementation: megakernel when eligible."""
-    B, T = x.shape
-    if not _use_kernel(B, T, stages):
-        return segment_fallback(x, stages, state_in)
-    from dsp_stuff_tpu.ops.pallas_chain import chain_kernel_call
-    y, casc_raw, ring_raw, taps = chain_kernel_call(x, stages, state_in)
-    # host-side state reconstruction (tiny reads)
-    cinfos = []
-    ci = 0
-    hi = 0
-    hists = []
-    K_real = T // 128
-    for st in stages:
-        if st[0] == "cascade":
-            carry_last, x_last = casc_raw[ci]
-            ci += 1
-            s1, s2 = cascade_tail_states(st[1], x_last, carry_last)
-            cinfos.append((s1, s2, x_last[..., -1], x_last[..., -2]))
-        elif st[0] in ("comb", "mtap"):
-            ring = ring_raw[hi]                       # [B, NR, 128]
-            hi += 1
-            # comb: D samples of output history; mtap: L samples of
-            # INPUT history over NH+1 ring slots (st[2] is D resp. L)
-            D = st[2]
-            NR = -(-D // 128) if st[0] == "comb" else st[3] + 1
-            # ring slot s holds block b == s (mod NR) for the last NR
-            # blocks; oldest block = K_real - NR -> start slot
-            s_old = (K_real - NR) % NR
-            lin = jnp.roll(ring, -s_old, axis=-2).reshape(*ring.shape[:-2],
-                                                          NR * 128)
-            hists.append(lin[..., -D:])
-    return y, tuple(cinfos), tuple(hists), taps
-
-
-def _shared_state_slots(stages: tuple) -> frozenset:
-    """State-entry indices that are SHARED trajectory operands (the
-    mtap q/r/frac): stream-independent by construction, they must pass
-    through vmap unbatched (broadcasting them would both break the
-    kernel's [T]-operand layout and waste B copies of HBM)."""
-    shared = set()
-    si = 0
-    for st in stages:
-        if st[0] in ("cascade", "comb"):
-            si += 1
-        elif st[0] == "mtap":
-            shared.update((si + 1, si + 2, si + 3))
-            si += 4
-    return frozenset(shared)
-
-
-@functools.lru_cache(maxsize=64)
-def _segment_core(stages: tuple):
-    shared_slots = _shared_state_slots(stages)
-
-    @jax.custom_batching.custom_vmap
-    def core(x, state_in):
-        # unbatched [T] input: the fallback composition
-        return segment_fallback(x, stages, state_in)
-
-    @core.def_vmap
-    def _vmap(axis_size, in_batched, x, state_in):
-        x_b = in_batched[0]
-        st_b = in_batched[1]
-        if not x_b or x.ndim != 2:
-            raise NotImplementedError(
-                "chain_segment: the signal must carry the (single) "
-                "vmapped axis")
-        if any(st_b[i] for i in shared_slots):
-            raise NotImplementedError(
-                "chain_segment: mtap trajectory operands (q/r/frac) are "
-                "lockstep-shared and must not carry the vmapped axis")
-        S = axis_size
-        sts = tuple(s if (b or i in shared_slots)
-                    else jnp.broadcast_to(s, (S, *jnp.shape(s)))
-                    for i, (s, b) in enumerate(zip(state_in, st_b)))
-        out = _segment_batched(x, stages, sts)
-        # everything is per-stream EXCEPT the mtap trajectory operands'
-        # positions don't appear in outputs (hists are per-stream)
-        batched = jax.tree.map(lambda _: True, out)
-        return out, batched
-
-    return core
-
-
-@functools.lru_cache(maxsize=64)
-def _segment_vjp(stages: tuple):
-    core = _segment_core(stages)
-
-    @jax.custom_vjp
-    def f(x, state_in):
-        return core(x, state_in)
-
-    def fwd(x, state_in):
-        return f(x, state_in), (x, state_in)
-
-    def bwd(res, ct):
-        x, state_in = res
-        _, pull = jax.vjp(
-            lambda xx, ss: segment_fallback(xx, stages, ss), x, state_in)
-        return pull(ct)
-
-    f.defvjp(fwd, bwd)
-    return f
-
-
-def chain_segment(x, stages, state_in):
-    """Public entry: fused evaluation of a stage chain over ``x``
-    [..., T] (see module docstring for the stage grammar and returns)."""
-    return _segment_vjp(tuple(stages))(x, tuple(state_in))

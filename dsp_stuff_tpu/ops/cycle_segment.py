@@ -1,17 +1,13 @@
-"""Fused feedback cycles: a whole chain-shaped SCC body as ONE op, with
-a single-HBM-pass Pallas megakernel on TPU.
+"""Fused feedback cycles: a whole chain-shaped SCC body as ONE op.
 
-The compiler lowers a feedback SCC whose members are all kernel-capable
+The compiler lowers a feedback SCC whose members are all supported
 (add/mix/gain/low_pass/high_pass/biquad/reverb + stateless shapers at
 base rate) to a static BLOCK PROGRAM over 128-sample blocks; this module
-executes the program either as a ``lax.scan`` interpreter (any backend,
-differentiable — the semantic mirror of the compiler's per-node cycle
-scan, compile.py _eval_cycle) or as the Pallas cycle kernel
-(ops/pallas_cycle.py) where every carried quantity — one-block-delayed
-member outputs (REGISTERS), cascade composite states, comb delay rings —
-lives in VMEM scratch across a sequential grid, so the whole cycle costs
-one read of the external feeds + one write of the tapped outputs per
-render instead of scan-iteration round-trips.
+executes the program as a ``lax.scan`` over the blocks (differentiable,
+the semantic mirror of the compiler's per-node cycle scan, compile.py
+_eval_cycle) with every carried quantity -- one-block-delayed member
+outputs (REGISTERS), cascade composite states, comb delay rings -- in
+the scan carry.
 
 Program grammar (static tuples; built by compile.py _plan_cycle_program):
 
@@ -49,8 +45,6 @@ fast-policy class (the cycle program only ever runs under ``fast``).
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -62,31 +56,16 @@ from dsp_stuff_tpu.ops.chain_segment import apply_ew
 C = 128
 
 
-def _program_counts(program: tuple):
-    n_c = sum(1 for ins in program if ins[0] == "cascade")
-    n_b = sum(1 for ins in program if ins[0] == "comb")
-    n_r = 1 + max((ins[1] for ins in program if ins[0] == "setreg"),
-                  default=-1)
-    n_t = 1 + max((ins[1] for ins in program if ins[0] == "tap"),
-                  default=-1)
-    n_e = 1 + max((t[1] for ins in program if ins[0] in ("join", "lin2")
-                   for t in (ins[1] + (ins[3] if ins[0] == "lin2" else ()))
-                   if t[0] == "ext"), default=-1)
-    return n_c, n_b, n_r, n_t, n_e
-
-
 def _casc_step(sections: tuple, blk, carry):
     """One 128-block cascade step: (y, new_carry) — the same blocked
     math as ops/cascade.linear_cascade restricted to one chunk (Ltg taps
-    GEMM at the l1-gated precision + HIGHEST ends + f32 carry algebra)."""
-    from dsp_stuff_tpu.utils.precision import gemm_precision
+    GEMM + ends + f32 carry algebra, all at HIGHEST)."""
     f32 = jnp.float32
     hi = jax.lax.Precision.HIGHEST
-    Ltg, W, E, P, N, B, l1, _ = _cascade_constants(sections, C, ())
-    gp = gemm_precision(l1)
+    Ltg, W, E, P, N, B, _ = _cascade_constants(sections, C, ())
     AC = P[C].astype(np.float32)
     y = (jnp.einsum("...c,cd->...d", blk, jnp.asarray(Ltg),
-                    preferred_element_type=f32, precision=gp)
+                    preferred_element_type=f32, precision=hi)
          + jnp.einsum("...b,db->...d", carry, jnp.asarray(E),
                       preferred_element_type=f32, precision=hi))
     newc = (jnp.einsum("...c,cb->...b", blk, jnp.asarray(W),
@@ -96,16 +75,19 @@ def _casc_step(sections: tuple, blk, carry):
     return y, newc
 
 
-def interpret(exts: tuple, regs0: tuple, states: tuple, program: tuple,
-              n_taps: int):
-    """lax.scan interpreter over nb = T // 128 blocks (any backend)."""
+def cycle_segment(exts, regs0, states, program, n_taps: int):
+    """Fused evaluation of a feedback-cycle block program (see the module
+    docstring for the grammar and returns): a lax.scan over
+    nb = T // 128 blocks."""
+    program = tuple(program)
     f32 = jnp.float32
     exts = tuple(jnp.asarray(e, f32) for e in exts)
     T = exts[0].shape[-1] if exts else regs0[0].shape[-1] * 0
     assert T % C == 0, T
     nb = T // C
     batch = exts[0].shape[:-1] if exts else regs0[0].shape[:-1]
-    n_c, n_b, n_r, n_t, n_e = _program_counts(program)
+    n_t = 1 + max((ins[1] for ins in program if ins[0] == "tap"),
+                  default=-1)
 
     casc_secs = [ins[1] for ins in program if ins[0] == "cascade"]
     si = 0
@@ -194,106 +176,3 @@ def interpret(exts: tuple, regs0: tuple, states: tuple, program: tuple,
          x_last[..., -1], x_last[..., -2])
         for secs, (c_in, x_last) in zip(casc_secs, snaps_f))
     return taps, tuple(regs_f), cinfos, tuple(hists_f)
-
-
-def _use_kernel(B: int, T: int, program: tuple) -> bool:
-    import os
-    from dsp_stuff_tpu.ops.scan import _tpu_backend
-    if os.environ.get("DST_PALLAS") == "0" or not _tpu_backend():
-        return False
-    if B < 64 or T % C or T < 2 * C:
-        return False
-    for ins in program:
-        if ins[0] == "comb" and ins[2] < C:
-            return False            # intra-block feedback: unchunkable
-    # geometry feasibility mirrors the chain kernel: full tile with a
-    # computed scoped-VMEM limit for big rings, halving past the cap
-    from dsp_stuff_tpu.ops.pallas_chain import pick_bt
-    n_c, n_b, n_r, n_t, n_e = _program_counts(program)
-    return pick_bt(program, B, n_seq=n_e + n_t, promote=False) is not None
-
-
-def _batched(exts, regs0, states, program: tuple, n_taps: int):
-    if not exts or not _use_kernel(exts[0].shape[0], exts[0].shape[1],
-                                   program):
-        return interpret(exts, regs0, states, program, n_taps)
-    from dsp_stuff_tpu.ops.pallas_cycle import cycle_kernel_call
-    casc_secs = [ins[1] for ins in program if ins[0] == "cascade"]
-    taps, regs_f, casc_raw, ring_raw = cycle_kernel_call(
-        exts, regs0, states, program, n_taps)
-    cinfos = []
-    for secs, (carry_last, x_last) in zip(casc_secs, casc_raw):
-        s1, s2 = cascade_tail_states(secs, x_last, carry_last)
-        cinfos.append((s1, s2, x_last[..., -1], x_last[..., -2]))
-    hists = []
-    K_real = exts[0].shape[-1] // C
-    bi = 0
-    for ins in program:
-        if ins[0] == "comb":
-            ring = ring_raw[bi]
-            bi += 1
-            D = ins[2]
-            NR = -(-D // C)
-            s_old = (K_real - NR) % NR
-            lin = jnp.roll(ring, -s_old, axis=-2).reshape(
-                *ring.shape[:-2], NR * C)
-            hists.append(lin[..., -D:])
-    return taps, regs_f, tuple(cinfos), tuple(hists)
-
-
-@functools.lru_cache(maxsize=64)
-def _cycle_core(program: tuple, n_taps: int, n_ext: int, n_reg: int):
-    @jax.custom_batching.custom_vmap
-    def core(exts, regs0, states):
-        return interpret(exts, regs0, states, program, n_taps)
-
-    @core.def_vmap
-    def _vmap(axis_size, in_batched, exts, regs0, states):
-        S = axis_size
-
-        def bcast(vals, flags):
-            return tuple(v if b else jnp.broadcast_to(v, (S, *jnp.shape(v)))
-                         for v, b in zip(vals, flags))
-
-        if not all(in_batched[0]) or (exts and exts[0].ndim != 2):
-            raise NotImplementedError(
-                "cycle_segment: external feeds must carry the (single) "
-                "vmapped axis")
-        out = _batched(exts, bcast(regs0, in_batched[1]),
-                       bcast(states, in_batched[2]), program, n_taps)
-        return out, jax.tree.map(lambda _: True, out)
-
-    return core
-
-
-@functools.lru_cache(maxsize=64)
-def _cycle_vjp(program: tuple, n_taps: int, n_ext: int, n_reg: int):
-    core = _cycle_core(program, n_taps, n_ext, n_reg)
-
-    @jax.custom_vjp
-    def f(exts, regs0, states):
-        return core(exts, regs0, states)
-
-    def fwd(exts, regs0, states):
-        return f(exts, regs0, states), (exts, regs0, states)
-
-    def bwd(res, ct):
-        exts, regs0, states = res
-        _, pull = jax.vjp(
-            lambda e, r, s: interpret(e, r, s, program, n_taps),
-            exts, regs0, states)
-        return pull(ct)
-
-    f.defvjp(fwd, bwd)
-    return f
-
-
-def cycle_segment(exts, regs0, states, program, n_taps: int):
-    """Public entry: fused evaluation of a feedback-cycle block program
-    (see module docstring for the grammar and returns)."""
-    program = tuple(program)
-    exts = tuple(exts)
-    regs0 = tuple(regs0)
-    states = tuple(states)
-    return _cycle_vjp(program, n_taps, len(exts), len(regs0))(
-        exts, regs0, states)

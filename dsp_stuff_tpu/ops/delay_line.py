@@ -13,7 +13,7 @@ with the delay line a rivulet ring pre-filled with D zeros, i.e.
 (The ring is re-allocated and zero-filled whenever `seconds` changes,
 reverb.rs:55-71; under jit that maps to a static max length with a reset.)
 
-TPU-first lowering: y[n] depends only on y[n - D], so the sequence splits
+Parallel lowering: y[n] depends only on y[n - D], so the sequence splits
 into chunks of exactly D samples with a first-order recurrence *between*
 chunks: chunk_k = x_chunk_k + decay * chunk_{k-1}.  A `lax.scan` over T/D
 chunks does O(T/D) sequential steps of fully-vectorized D-wide work --
@@ -109,9 +109,9 @@ def _feedback_comb_impl(x, decay, history, D: int, associative: bool,
     pad = nchunks * D - T
     xp = jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, pad)])
     # batch-major [..., K, D] for the parallel paths: a contiguous
-    # reshape, NOT a chunk-major moveaxis — at batch 512 the two
-    # transposes (to [K, ..., D] and back) were full HBM read+write
-    # passes over the signal, ~1/3 of the whole node's cost
+    # reshape, NOT a chunk-major moveaxis — the two transposes (to
+    # [K, ..., D] and back) would be full read+write passes over the
+    # signal
     xcb = xp.reshape(*batch, nchunks, D)
 
     if associative and nchunks > 1:
@@ -137,34 +137,22 @@ def _feedback_comb_impl(x, decay, history, D: int, associative: bool,
     return y, new_hist
 
 
-def _comb_l1(decay, n: int):
-    """Tap-row l1 of the comb's power-Toeplitz (sum |decay|^k, k < n):
-    the bf16x3 eligibility bound (utils.precision.gemm_precision);
-    None when the decay is traced."""
-    import numpy as np
-    if isinstance(decay, (int, float, np.floating)):
-        return float(np.sum(np.abs(np.float32(decay))
-                            ** np.arange(n, dtype=np.float64)))
-    return None
-
-
 def _comb_chunks_blocked(xcb, decay, history, G_max: int = 256):
     """Solve y_k = decay * y_{k-1} + x_k over the chunk axis with Toeplitz
     matmuls (same scheme as ops/scan.py:_first_order_blocked, but the
     recurrence elements are whole [D]-vectors).
 
     XLA lowers a K-long associative_scan as a logarithmic while-loop of
-    dynamic slices (~1 ms/render at K=1200 on v5e); Toeplitz matmuls
-    replace it.  The chunk axis stays batch-major throughout: the
-    natural [M, K] x [K, N] MXU layout for the einsum, avoiding the
-    two full-signal HBM transposes a chunk-major layout costs.
+    dynamic slices; Toeplitz matmuls replace it.  The chunk axis stays
+    batch-major throughout: the natural [M, K] x [K, N] layout for the
+    einsum, avoiding the two full-signal transposes a chunk-major layout
+    costs.
 
     K <= G_max (the common offline case, e.g. 10 s / 0.05 s delay =
     200 chunks): ONE [K, K] Toeplitz GEMM with the carried history as a
     fused d^(k+1) epilogue -- no padding, no carry chain, no second
-    signal read.  Measured 8.0 vs 17.2 ms at batch 512 x 10 s against
-    the previous fixed-G=128 two-level scheme, whose pad of K=200 to
-    KG*G=256 materialized a 28%-larger signal copy.
+    signal read (a fixed two-level scheme would pad K=200 to 256 and
+    materialize a 28%-larger signal copy).
 
     K > G_max: two-level with G = ceil(K/KG) rounded up to a multiple
     of 8 (exact fit or near it), so the pad stays <= 8*KG - 1 chunks
@@ -184,10 +172,9 @@ def _comb_chunks_blocked(xcb, decay, history, G_max: int = 256):
     if K <= G_max:
         # y_k = sum_{j<=k} d^(k-j) x_j + d^(k+1) history, one GEMM
         pows, LtK, _ = scalar_power_toeplitz(decay, K, row_ge_col=True)
-        from dsp_stuff_tpu.utils.precision import gemm_precision
         yb = jnp.einsum("ij,...jd->...id", LtK, xcb,
                         preferred_element_type=f32,
-                        precision=gemm_precision(_comb_l1(decay, K))) \
+                        precision=jax.lax.Precision.HIGHEST) \
             + pows[1:].reshape(K, 1) * history[..., None, :]
         return yb, yb[..., K - 1, :]
 
@@ -207,9 +194,6 @@ def _comb_chunks_blocked(xcb, decay, history, G_max: int = 256):
     # one column out of it), then the carry chain, then y in ONE GEMM
     # whose +carry epilogue XLA fuses.
     # e_m = decay^G e_{m-1} + z[m, -1],  z[m, -1] = sum_j d^(G-1-j) x[m, j]
-    from dsp_stuff_tpu.utils.precision import gemm_precision
-    gp = gemm_precision(_comb_l1(decay, G))
-    # ends mat-vec stays HIGHEST: bandwidth-bound, seeds the carry chain
     ends = jnp.einsum("j,...jd->...d", pows[G - 1::-1], Xg,
                       preferred_element_type=f32,
                       precision=jax.lax.Precision.HIGHEST)  # [..., KG, D]
@@ -229,7 +213,7 @@ def _comb_chunks_blocked(xcb, decay, history, G_max: int = 256):
 
     yg = jnp.einsum("ij,...jd->...id", LtG, Xg,
                     preferred_element_type=f32,
-                    precision=gp) \
+                    precision=jax.lax.Precision.HIGHEST) \
         + carry_in[..., :, None, :] * pows[1:].reshape(G, 1)
     yb = yg.reshape(*batch, KG * G, D)[..., :K, :]
     return yb, yb[..., K - 1, :]

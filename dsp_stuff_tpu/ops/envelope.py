@@ -18,15 +18,16 @@ carry: for any two envelopes e1, e2 and the same input sample,
 gains, which are < 1, and the cross-branch case splits into two
 non-negative terms each bounded by its gain).  The ``fast`` policy exploits
 that with a two-pass chunk-parallel evaluation whose sequential step count
-is 2*chunk regardless of T (`_chunked_batched`); parity/exact keep the
-per-sample `lax.scan`.
+is 2*chunk regardless of T (`_chunked_batched`; on a GPU the same two
+passes run as one Pallas Triton launch each, ops/envelope_triton.py);
+parity/exact keep the per-sample `lax.scan`.
 
 The fast path is wrapped in
 
 * ``jax.custom_batching.custom_vmap`` — a vmapped (per-stream) call
   re-dispatches to the explicit [B, T] implementation whose scan carry is
-  laid out [P, B] (chunk-major, batch in lanes); vmap's default [B, P]
-  carry wastes 7/8 of every vector register when P << 128;
+  laid out [P, B] (chunk-major, streams on the contiguous minor axis);
+  vmap's default [B, P] carry puts the short chunk axis minor;
 * ``jax.custom_vjp`` — the adjoint of the recurrence is a *linear*
   first-order reverse recurrence in the cotangent (coefficient = the
   forward's selected gain), so the backward pass lowers to the same fast
@@ -48,10 +49,9 @@ def gain_from_frames(frames):
     Concrete (untraced, scalar) frame counts evaluate in NumPy f32 at
     trace time: the gain becomes a compile-time constant identical on
     every backend.  The recurrence amplifies a 1-ulp gain difference over
-    thousands of samples — the TPU exp kernel's rounding pushed a 10 s
-    parity render to ~-89.6 dBFS vs the NumPy oracle (caught by the r3
-    on-chip suite run); with host-computed gains the backends agree
-    exactly."""
+    thousands of samples, so a device exp that rounds differently from
+    NumPy's would cost a long parity render most of its -90 dBFS budget;
+    with host-computed gains the backends agree exactly."""
     if not isinstance(frames, jax.core.Tracer) and np.ndim(frames) == 0:
         f = np.float32(frames)
         if f == 0.0:
@@ -62,21 +62,11 @@ def gain_from_frames(frames):
     return jnp.where(frames == 0.0, 0.0, jnp.exp(-1.0 / safe))
 
 
-def _use_pallas() -> bool:
-    from dsp_stuff_tpu.ops.scan import _use_pallas as _up
-    return _up()
-
-
-def _pallas_chunked_default() -> bool:
-    """The chunk-parallel Pallas envelope is DEFAULT-ON on TPU backends
-    (unlike the other Mosaic paths): it is measured bit-identical to the
-    XLA chunked scan on-chip, ~2x its non-floor time, and differentiable
-    through the envelope's custom_vjp.  DST_PALLAS=0 disables it; the
-    platform gate always applies (a compiled Mosaic kernel cannot run on
-    the CPU backend -- tests exercise it via interpret mode)."""
-    import os
-    from dsp_stuff_tpu.ops.scan import _tpu_backend
-    return os.environ.get("DST_PALLAS") != "0" and _tpu_backend()
+def _use_triton(B: int, T: int) -> bool:
+    """The chunked path runs the Pallas Triton kernel
+    (ops/envelope_triton.py) on an NVIDIA GPU backend and XLA's two
+    scans everywhere else.  Read at trace time."""
+    return T > 2 * _CHUNK and jax.default_backend() == "gpu"
 
 
 # Chunk length for the fast-policy chunk-parallel path.  Convergence of the
@@ -116,8 +106,8 @@ def _chunked_batched(x, atk, rel, env0, chunk):
     (bit-identical on every tested input).  Sequential step count: 2*chunk,
     independent of T.
 
-    Layout: the scan carry is [P, B] — chunks on the sublane axis, streams
-    on the lane axis — so each step is a few full-width VPU ops; the
+    Layout: the scan carry is [P, B] — streams on the contiguous minor
+    axis — so each step is a few full-width vector ops; the
     [B, P, chunk] <-> [chunk, P, B] transposes at the boundary are cheap
     relative to the T-step scan they remove.
     """
@@ -138,29 +128,21 @@ def _chunked_batched(x, atk, rel, env0, chunk):
 
 def _fast_fwd_batched(x, atk, rel, env0):
     """Forward for explicit [B, T] input: chunked when long enough (the
-    on-chip Pallas variant when opted in), the plain Pallas kernel or scan
-    otherwise."""
+    Triton kernel on a GPU), the sequential scan otherwise."""
     B, T = x.shape
+    if _use_triton(B, T):
+        from dsp_stuff_tpu.ops import envelope_triton
+        return envelope_triton.peak_envelope_chunked(x, atk, rel, env0,
+                                                     chunk=_CHUNK)
     if T > 2 * _CHUNK:
-        # the Pallas chunked kernel pads batch to 128 lanes and chunks to
-        # 8 sublanes -- for small B that stages up to ~100x padding
-        # through HBM; only worth it when the lanes are mostly real
-        if _pallas_chunked_default() and B >= 64:
-            from dsp_stuff_tpu.ops.pallas_envelope import (
-                peak_envelope_pallas_chunked)
-            return peak_envelope_pallas_chunked(x, atk, rel, env0,
-                                                chunk=_CHUNK)
         return _chunked_batched(x, atk, rel, env0, _CHUNK)
-    if _use_pallas():
-        from dsp_stuff_tpu.ops.pallas_envelope import peak_envelope_pallas
-        return peak_envelope_pallas(x, atk, rel, env0)
     return _seq_scan(x, atk, rel, env0)
 
 
 @jax.custom_batching.custom_vmap
 def _env_fast(x, atk, rel, env0):
     """Fast-policy envelope core on unbatched [T] input.  A vmapped call
-    re-dispatches to the explicit [B, T] implementation (lane-friendly
+    re-dispatches to the explicit [B, T] implementation (streams-minor
     carry layout); gains must be unbatched scalars (they always are: the
     Envelope node has no as_input params and sliders are per-graph)."""
     env, fin = _fast_fwd_batched(x[None], atk, rel, env0[None])
@@ -277,7 +259,7 @@ def peak_envelope(x, attack_frames=0.0, release_frames=0.0, env0=0.0):
             and not _frames_maybe_too_large(release_frames)):
         if x.ndim == 2:
             # explicit batch: route through vmap so the custom_vmap rule
-            # picks the lane-friendly [P, B] carry layout
+            # picks the streams-minor [P, B] carry layout
             return jax.vmap(_env_core, in_axes=(0, None, None, 0))(
                 x, atk, rel, env0)
         return _env_core(x, atk, rel, env0)

@@ -23,12 +23,12 @@ approximations rather than transcriptions:
   stretch over proportionally more of the axis (the defining property of
   the mode); audioviz's exact exponent is unknown.
 
-The **cubic interpolation is exact in spirit and TPU-native in form**: a
+The **cubic interpolation is exact in spirit and matmul-shaped in form**: a
 Catmull-Rom resampling of the non-uniformly positioned bins onto a uniform
 display grid.  Positions are static per (fft_size, bounds), so the whole
 interpolation collapses into one precomputed ``[K_out, n_bins]`` weight
-matrix and the per-frame work is a single matmul -- MXU-shaped, fused by
-XLA into the surrounding pipeline.
+matrix and the per-frame work is a single matmul, fused by XLA into the
+surrounding pipeline.
 """
 
 from __future__ import annotations
@@ -122,7 +122,8 @@ def spectrogram(x, fft_size: int = 512, lower_hz: float = 20.0,
     n = keep.size
     K = int(resolution) if resolution else n
     W = jnp.asarray(_catmull_rom_matrix(n, K))
-    # HIGHEST: v5e f32 matmuls default to one-pass bf16 (~-52 dBFS error)
+    # HIGHEST: a default-precision f32 matmul may run in TF32 or bf16 on
+    # an accelerator (10 or 7 mantissa bits)
     cols = jnp.einsum("...k,jk->...j", spec, W,
                       preferred_element_type=jnp.float32,
                       precision=jax.lax.Precision.HIGHEST)

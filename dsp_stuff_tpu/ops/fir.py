@@ -71,46 +71,28 @@ def _conv_cgd(xp, h):
     return out.reshape((*batch_shape, -1))
 
 
-def _fft_fallback_dtype(dt):
-    """The TPU compiler has no f64 FFT at all ('Unexpected operand type
-    for FFT: f64' — hard compile error, found by the r3 on-chip suite
-    run), so parity-policy FFT convolutions compute their transforms in
-    f32 there.  Accuracy class on chip: ~eps_f32*log2(nfft) relative
-    (~-110 dBFS for 4k FFTs) — inside the -90 dBFS parity budget but not
-    the f64 oracle's bit pattern; PARITY.md 'Backend scope' carries the
-    caveat.  CPU keeps the true f64 transforms."""
-    if jnp.dtype(dt) != jnp.float64:
-        return dt
-    from dsp_stuff_tpu.utils.precision import tpu_backend
-    return jnp.float32 if tpu_backend() else dt
-
-
 def _fft_conv(x, h):
     """FFT convolution; overlap-save blocks when the signal is much longer
     than the IR (BASELINE config #4 names overlap-save: bounded FFT size,
     batched block transforms instead of one signal-length FFT).
-    Accumulation dtype follows the precision policy (f32 transforms on
-    TPU backends -- see _fft_fallback_dtype)."""
+    Accumulation dtype follows the precision policy (the caller's x
+    dtype: f64 transforms under parity)."""
     T = x.shape[-1]
     N = h.shape[0]
     dt = x.dtype
-    fdt = _fft_fallback_dtype(dt)
-    if fdt != dt:
-        x = x.astype(fdt)
     nfft_os = 1 << max(int(np.ceil(np.log2(max(2 * N, 2)))), 10)
     if T <= 4 * nfft_os:
         # short signal: one FFT is cheaper than framing
         nfft = 1 << (T + N - 2).bit_length()
         X = jnp.fft.rfft(x, nfft)
-        H = jnp.fft.rfft(h.astype(fdt), nfft)
+        H = jnp.fft.rfft(h.astype(dt), nfft)
         return jnp.fft.irfft(X * H, nfft)[..., :T].astype(dt)
 
     # overlap-save: frames of nfft with N-1 samples of history each; every
     # frame yields hop = nfft-(N-1) valid outputs after discarding the
     # wrap-around prefix.  nfft >= 2N guarantees overlap (N-1) <= hop, so
     # the overlapping frames build from two contiguous reshapes (cheap
-    # block copies) instead of a [K, nfft] gather (measured ~4 ms per
-    # 480k-sample render on v5e for the gather alone).
+    # block copies) instead of a [K, nfft] gather.
     nfft = nfft_os
     hop = nfft - (N - 1)
     K = -(-T // hop)
@@ -120,7 +102,7 @@ def _fft_conv(x, h):
     W1 = xp[..., :K * hop].reshape(*batch, K, hop)
     W2 = xp[..., hop:hop + K * hop].reshape(*batch, K, hop)[..., :N - 1]
     frames = jnp.concatenate([W1, W2], axis=-1)            # [..., K, nfft]
-    H = jnp.fft.rfft(h.astype(fdt), nfft)
+    H = jnp.fft.rfft(h.astype(dt), nfft)
     Y = jnp.fft.irfft(jnp.fft.rfft(frames, nfft) * H, nfft)
     y = Y[..., N - 1:].reshape(*batch, K * hop)[..., :T]
     return y.astype(dt)
@@ -166,10 +148,8 @@ def fir_apply(x, taps_rev, state, divisor=1.0):
     if n_seen.ndim == 0:
         # LOCKSTEP counter (the node path: Fir declares n_seen shared —
         # all streams advance together).  The two warm gathers then use
-        # SHARED 1-D indices, i.e. whole-[B]-row fetches per index —
-        # per-ROW indices measured 134.5 + 65.4 ms of the 313 ms
-        # batch-256 config4 render (the ~1 elt/cycle per-element gather
-        # class, CLAUDE.md), vs ~4 ms for the row-gather forms.
+        # SHARED 1-D indices, i.e. whole-[B]-row fetches per index
+        # instead of B per-element gathers per index.
         seg_pos = gidx - n_seen                                    # [N-1]
         in_seg = (seg_pos >= 0) & (seg_pos < T)
         # relevant slots satisfy seg_pos = g - n_seen <= N-2, so the

@@ -2,7 +2,7 @@
 
 Extension beyond the reference's 21 nodes (it has no chorus; BASELINE.json
 config #2 calls for "ring-buffer delay lines with modulated fractional
-taps").  TPU-first shape: the whole modulated tap is one vectorized gather —
+taps").  Vectorized shape: the whole modulated tap is one vectorized gather —
 
     d[t]   = base + depth * sin(2*pi*rate*t/sr + phase0)     (samples)
     pos[t] = t - d[t]
@@ -28,7 +28,7 @@ def max_delay_samples(base_s: float, depth_s: float,
     return int(np.ceil((base_s + depth_s) * sample_rate)) + 2
 
 
-_BARREL_FRAME = 128      # outputs per frame (one full lane row)
+_BARREL_FRAME = 128      # outputs per frame
 _BARREL_MIN_T = 8192     # below this the gather is dispatch-bound anyway
 _BARREL_MAX_E = 16       # residual range cap (fast+deep LFOs fall back)
 
@@ -113,18 +113,15 @@ def _barrel_taps(xx, i, c0: int, U: int, E: int):
     for a smooth monotone shared index trajectory ``i`` (values
     t + c0 + u[t], 0 <= u < U, |u variation| < E per 128-frame).
 
-    Pipeline (every step chosen against measured v5e pathologies):
-    1. frames of F=128 outputs built by jnp.stack of sublane-shifted
+    Pipeline:
+    1. frames of F=128 outputs built by jnp.stack of row-shifted
        contiguous reshapes (NOT concatenate of minor-dim slices and NOT a
-       log2 chain of shrinking wheres — both blow XLA compile time up to
-       ~300-500 s on this backend);
+       log2 chain of shrinking wheres — both blow up XLA compile time);
     2. per frame, the minimum offset U_f rounded to 8 selects an aligned
        [18, 8] sub-block window via ONE vmapped dynamic_slice — 3750
-       block fetches per 10 s render instead of 480k scalar gathers
-       (measured 1.99 ms vs 5.1 ms for a 136-wide unaligned slice and
-       ~7 ms for the plain per-element gather), compiling in ~1 s;
+       block fetches per 10 s render instead of 480k scalar gathers;
     3. the residual (U_f mod 8) + e in [0, 8+E) picks between shifted
-       copies via one-hot where-selects — full-width VPU ops (selects,
+       copies via one-hot where-selects — full-width vector ops (selects,
        not 0/1-mask multiplies, so a NaN/Inf input sample cannot smear
        across the outputs that merely share its window column).
 
@@ -228,10 +225,10 @@ def _tap_trajectory(rate_hz, depth_s, base_s, L: int, T: int, t0,
         # precision.mul_unfused computes the product in f64 and rounds it
         # onto the f32 grid, which is bit-identical to an unfused f32
         # multiply and cannot be contracted.
-        from dsp_stuff_tpu.utils.precision import mul_unfused
-        s = jnp.sin(arg.astype(jnp.float64)).astype(f32)
+        from dsp_stuff_tpu.utils.precision import f32_grid, mul_unfused
+        s = jnp.sin(f32_grid(arg)).astype(f32)
         sweep = mul_unfused(jnp.asarray(depth_s, f32) * sample_rate, s)
-        d = jnp.asarray(base_s, f32) * sample_rate + sweep
+        d = f32_grid(jnp.asarray(base_s, f32) * sample_rate + sweep)
     # pos in f64: offline and streaming evaluate the same tap at offsets
     # differing by an exact integer (the segment start), so a double
     # subtraction keeps i/frac bit-identical across segmentations —
@@ -266,20 +263,17 @@ def modulated_delay(x, rate_hz, depth_s, base_s, mix, hist, t0,
         # clock — the normal case).  Two lowerings:
         #
         # * barrel-shift (small/unbatched renders): a per-ELEMENT gather at
-        #   batch<=1 runs ~1 elt/cycle on v5e (~7 ms for a 10 s mono
-        #   render — it WAS config2, profiled r3: chorus 167.6 ms vs
-        #   24.3 ms passthrough floor per 20 renders).  The trajectory is
+        #   batch<=1 serializes on one index at a time.  The trajectory is
         #   smooth (LFO slope depth*2*pi*rate samples/sample), so per
         #   128-frame the integer offset is a per-frame constant plus a
         #   tiny residual; the constant applies via log2(U) slice+select
         #   stages and the residual via E masked shifted adds — all
-        #   full-width VPU ops, no gather anywhere.
+        #   full-width vector ops, no gather anywhere.
         # * operand-batched gather (large vmapped batches): with B streams
-        #   each index fetches a whole [B] row, measured 12x faster than
-        #   the explicitly-broadcast per-element gather (0.2 s vs 2.6 s at
-        #   [128, 480k]) — and the barrel frames would cost B x 11 MB of
-        #   HBM there.  Plain indexing stays differentiable for train/fit
-        #   (the barrel path is differentiable by construction: slices,
+        #   each index fetches a whole [B] row instead of B per-element
+        #   gathers — and the barrel frames would cost B x 11 MB of
+        #   device memory there.  Plain indexing stays differentiable for
+        #   train/fit (the barrel path is differentiable by construction: slices,
         #   selects and adds).
         shift = _barrel_plan(rate_hz, depth_s, base_s, L, T, sample_rate)
         # total batch = vmap-hidden batch x explicit leading dims (an
@@ -307,16 +301,14 @@ def modulated_delay(x, rate_hz, depth_s, base_s, mix, hist, t0,
 
 
 # ---------------------------------------------------------------------------
-# Fused-chorus ("mtap") support: the chain megakernel evaluates the
-# modulated fractional tap on a VMEM-resident input ring
-# (ops/pallas_chain.py), so at batch a chorus costs ZERO extra HBM
-# passes.  The trajectory is shared across streams (lockstep clock), so
-# its decomposition — per-block window starts q, per-sample
-# residuals r < 8+E, interpolation weights frac — precomputes OUTSIDE
-# the kernel as three tiny [K]/[T] arrays (1/B-th of a signal pass) and
-# rides in as shared operands.  The fallback (mtap_apply) evaluates the
-# same decomposition by gather, bit-identical to modulated_delay's
-# batched path for finite values.
+# Fused-chorus ("mtap") support: a chorus inside a chain segment
+# (ops/chain_segment.py).  The trajectory is shared across streams
+# (lockstep clock), so its decomposition — per-block window starts q,
+# per-sample residuals r < EV, interpolation weights frac — precomputes
+# once per render as three tiny [K]/[T] arrays (1/B-th of a signal pass)
+# and rides in as shared segment operands.  mtap_apply evaluates the
+# decomposition by gather, bit-identical to modulated_delay's batched
+# path for finite values.
 
 _MTAP_S = _BARREL_SUB       # window alignment granularity (8)
 
@@ -325,14 +317,11 @@ def mtap_static(rate_hz: float, depth_s: float, base_s: float, L: int,
                 sample_rate: int = 48_000):
     """Static mtap geometry for CONCRETE LFO params, or None when the
     stage can't lower: (NH, EV, RS) with NH = history blocks (ring has
-    NH+1 slots), EV = one-hot select count (the per-block trajectory
-    variation bound ONLY — unlike the XLA barrel path, the kernel's
-    window extraction is a pltpu.roll, which takes ANY shift, so q need
-    not be 8-aligned and EV carries no +8 alignment residue; measured
-    the selects were the kernel's dominant VPU cost), RS = window slice
-    width.  Gates: the minimum delay must keep the whole window slice
-    inside written ring blocks (dmin >= RS - 128 + 2), and EV must stay
-    VPU-cheap."""
+    NH+1 slots), EV = the per-block trajectory variation bound (q is
+    exact, not 8-aligned, so EV carries no alignment residue), RS =
+    window slice width.  Gates: the minimum delay must keep the whole
+    window slice inside the (NH+1)-block window (dmin >= RS - 128 + 2),
+    and EV must stay bounded."""
     C = _BARREL_FRAME
     rate = abs(float(rate_hz))
     depth = float(depth_s) * sample_rate
@@ -355,10 +344,9 @@ def mtap_shared(rate_hz, depth_s, base_s, L: int, T: int, t0,
 
     Coordinates: in-render absolute tap position a[t] = i[t] - L (i from
     _tap_trajectory, so indices/weights are IDENTICAL to the unfused
-    chorus); u[t] = a[t] - t + NH*128 is the offset into the kernel's
-    (NH+1)-block window; q_b = per-block min of u (exact — the kernel's
-    pltpu.roll takes any shift, so no 8-alignment residue inflates the
-    select count), r = u - q_b[t // 128] in [0, EV)."""
+    chorus); u[t] = a[t] - t + NH*128 is the offset into the
+    (NH+1)-block window; q_b = per-block min of u (exact, no
+    8-alignment), r = u - q_b[t // 128] in [0, EV)."""
     C = _BARREL_FRAME
     assert T % C == 0, T
     i, frac = _tap_trajectory(rate_hz, depth_s, base_s, L, T, t0,
@@ -372,10 +360,9 @@ def mtap_shared(rate_hz, depth_s, base_s, L: int, T: int, t0,
 
 
 def mtap_apply(x, hist, q, r, frac, mix):
-    """Fallback mtap evaluation on [..., T] via gather (indices and
-    weights identical to modulated_delay's batched lowering; used by
-    ops/chain_segment.segment_fallback and as the VJP reference).
-    Returns (y, new_hist)."""
+    """mtap evaluation on [..., T] via gather (indices and weights
+    identical to modulated_delay's batched lowering; used by
+    ops/chain_segment.chain_segment).  Returns (y, new_hist)."""
     f32 = jnp.float32
     x = jnp.asarray(x, f32)
     T = x.shape[-1]

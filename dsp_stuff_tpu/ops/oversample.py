@@ -3,7 +3,7 @@
 Nonlinear shapers generate harmonics above Nyquist that alias back down;
 running them at 4x rate with band-limiting FIRs on both sides suppresses
 that.  The reference has no oversampling (its Distort node aliases); this
-is a TPU-first extension.
+is an extension.
 
     up:   y[R*t + p] = sum_k h[R*k + p] * x[t - k]      (polyphase)
     down: z[t]       = sum_k h[k] * y[R*t - k]          (strided FIR)
@@ -19,10 +19,9 @@ precomputed static tap matrix:
     down: Z[m, 128]  = Yw[m, 144R] @ Md[144R, 128]
 
 (window = block + 8 base-rate samples of halo each side = the kernel's
-group delay).  A `lax.conv_general_dilated` with batch=1/channel=1 has no
-MXU mapping at all — measured 156 ms for one 4x upsample of a 480k-sample
-mono render on v5e, ~100x off the roofline; the block matmul runs the
-identical sums on the MXU.
+group delay).  A `lax.conv_general_dilated` with batch=1/channel=1 maps
+badly onto matrix hardware; the block matmul runs the identical sums as
+one GEMM.
 """
 
 from __future__ import annotations
@@ -107,7 +106,7 @@ def _windows(x, blk: int, halo: int):
 
 def upsample(x, R: int):
     """[..., T] -> [..., R*T]: zero-stuff + low-pass (gain-compensated),
-    lowered as one blocked MXU matmul."""
+    lowered as one blocked matmul."""
     x = jnp.asarray(x, jnp.float32)
     T = x.shape[-1]
     Xw, M = _windows(x, _BLK, _HALO)                       # [..., M, 144]
@@ -120,7 +119,7 @@ def upsample(x, R: int):
 
 def downsample(x, R: int):
     """[..., R*T] -> [..., T]: low-pass + decimate, lowered as one blocked
-    MXU matmul."""
+    matmul."""
     x = jnp.asarray(x, jnp.float32)
     Tu = x.shape[-1]
     T = -(-Tu // R)

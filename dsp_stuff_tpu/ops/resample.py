@@ -2,7 +2,7 @@
 
 The reference's output path resamples 48 kHz -> device rate with a sinc-16
 interpolator on the host audio thread (devices.rs:550-556).  Here the same
-16-tap Hann-windowed sinc runs on-device, restructured for the TPU: each
+16-tap Hann-windowed sinc runs on-device, restructured as a contraction: each
 output sample is a dot product of 16 taps with a gathered input window, so
 the whole resample is one [n_out, 16] tap matrix (precomputed per output
 grid at trace time when the ratio is static) contracted against gathered

@@ -2,8 +2,8 @@
 
 The reference evaluates all IIR state sequentially per sample on the CPU
 (one-pole smoothers low_pass.rs:36-41 / high_pass.rs:36-41, DirectForm1
-biquad biquad.rs:79-89).  On TPU a sequential 48 kHz loop would waste the
-machine; linear recurrences are instead lowered to
+biquad biquad.rs:79-89).  On an accelerator a sequential 48 kHz loop would
+waste the machine; linear recurrences are instead lowered to
 ``jax.lax.associative_scan`` (Blelloch scan over the affine-map monoid),
 which XLA parallelizes over the sample axis:
 
@@ -45,7 +45,7 @@ def first_order_affine(a, b, y0):
     b[..., 0].  Returns y with b's shape, f32.
 
     Lowering: with constant ``a`` under the 'fast' policy, the recurrence
-    becomes per-chunk Toeplitz matmuls on the MXU (see _first_order_blocked);
+    becomes per-chunk Toeplitz matmuls (see _first_order_blocked);
     otherwise a Blelloch associative scan at the policy's internal dtype;
     'exact' runs strictly sequentially.
 
@@ -57,8 +57,8 @@ def first_order_affine(a, b, y0):
     argument: abstracted into a tracer, the Toeplitz tap matrix becomes
     per-call cumprod/where ops that XLA neither constant-folds (cumprod
     lowers through a while loop) nor hoists out of an enclosing
-    feedback-cycle scan — measured ~15 us per 128-sample block, 3x the
-    rest of a cycle body.  Static ``a`` builds the matrices in NumPy as
+    feedback-cycle scan (a per-block rebuild that can outweigh the rest of
+    a cycle body).  Static ``a`` builds the matrices in NumPy as
     trace-time constants while standalone eager calls stay one fused
     dispatch.
     """
@@ -68,8 +68,7 @@ def first_order_affine(a, b, y0):
             and pol.scan_internal_dtype == "float32"
             and np.ndim(a) == 0 and not isinstance(a, jax.core.Tracer)
             and _inside_trace()
-            and b_arr.shape[-1] >= 2
-            and not (_use_pallas() and b_arr.shape[-1] >= 1024)):
+            and b_arr.shape[-1] >= 2):
         # static (hashable) coefficient INSIDE an enclosing trace (the
         # compile_graph case): constants fold at trace time.  Eager
         # standalone calls keep the traced-operand jit below -- one cache
@@ -110,29 +109,11 @@ def _first_order_blocked_static(a: float, b, y0):
     return _first_order_blocked(a, b, y0)
 
 
-def _tpu_backend() -> bool:
-    """True when the default backend can run compiled Mosaic kernels
-    (delegates to the canonical probe in utils.precision)."""
-    from dsp_stuff_tpu.utils.precision import tpu_backend
-    return tpu_backend()
-
-
-def _use_pallas() -> bool:
-    """Route constant-a first-order recurrences through the Pallas kernel
-    (ops/pallas_scan.py) — opt-in via DST_PALLAS=1; it is a single-HBM-pass
-    variant of the same blocked algorithm, TPU backends only."""
-    import os
-    return os.environ.get("DST_PALLAS") == "1" and _tpu_backend()
-
-
 @functools.partial(jax.jit, static_argnums=(3, 4), inline=True)
 def _first_order_jit(a, b, y0, internal_dtype, sequential):
     if sequential:
         return _first_order_sequential(a, b, y0)
     if a.ndim == 0 and internal_dtype == "float32" and b.shape[-1] >= 2:
-        if _use_pallas() and b.shape[-1] >= 1024:
-            from dsp_stuff_tpu.ops.pallas_scan import first_order_pallas
-            return first_order_pallas(a, b, y0)
         return _first_order_blocked(a, b, y0)
 
     dt = jnp.dtype(internal_dtype)
@@ -152,10 +133,9 @@ def _first_order_jit(a, b, y0, internal_dtype, sequential):
     return y.astype(jnp.float32)
 
 
-# chunk length for MXU-blocked recurrences: y_chunk = B @ Lt is a
-# [K, C] @ [C, C] matmul.  128 == the MXU/lane tile: the [.., T] ->
-# [.., K, C] reshape is then layout-free, and the Toeplitz costs
-# C MACs/sample (halving C halved the whole op's measured time on v5e)
+# chunk length for blocked recurrences: y_chunk = B @ Lt is a
+# [K, C] @ [C, C] matmul.  The [.., T] -> [.., K, C] reshape is
+# layout-free, and the Toeplitz costs C MACs/sample
 _BLOCK_C = 128
 
 
@@ -170,7 +150,7 @@ def scalar_power_toeplitz(a, n: int, row_ge_col: bool = False):
     (Python/NumPy scalar) coefficient builds everything in NumPy as
     trace-time constants — traced, a jnp.cumprod would sit inside the
     jaxpr as a while-lowered op XLA neither folds nor hoists out of an
-    enclosing feedback-cycle scan (~15 us per 128-block)."""
+    enclosing feedback-cycle scan."""
     f32 = jnp.float32
     if isinstance(a, (int, float, np.floating)):
         i = np.arange(n)
@@ -193,7 +173,7 @@ def scalar_power_toeplitz(a, n: int, row_ge_col: bool = False):
 
 
 def _first_order_blocked(a, b, y0, C: int = _BLOCK_C, scale=1.0):
-    """Constant-coefficient first-order recurrence as MXU matmuls.
+    """Constant-coefficient first-order recurrence as matmuls.
 
     ``scale`` (concrete, trace-time) solves  y[t] = a y[t-1] + scale b[t]
     by folding the factor into the Toeplitz/ends tap constants -- b feeds
@@ -204,13 +184,13 @@ def _first_order_blocked(a, b, y0, C: int = _BLOCK_C, scale=1.0):
         z[k, i] = sum_{j<=i} a^(i-j) b[k, j]  =  (B @ Lt)[k, i],
         Lt[j, i] = a^(i-j) for i >= j else 0          ([C, C], constant)
 
-    i.e. one batched triangular-Toeplitz matmul that the MXU eats whole
+    i.e. one batched triangular-Toeplitz matmul
     (a [T/C, C] @ [C, C] GEMM -- ~C MACs/sample).  Chunk carries follow
     the tiny K-length recurrence  e_k = a^C e_{k-1} + z[k, C-1]  (solved
     by associative scan -- C times fewer elements than the naive scan),
     and the carry folds back in as  y[k, i] = z[k, i] + e_{k-1} a^(i+1).
-    This replaces a T-length Blelloch scan (log T passes over HBM with
-    lane-axis shuffles) by work that is ~30x faster on a v5e.
+    This replaces a T-length Blelloch scan (log T passes over the signal
+    in memory) by one GEMM pass.
     """
     f32 = jnp.float32
     T = b.shape[-1]
@@ -236,26 +216,16 @@ def _first_order_blocked(a, b, y0, C: int = _BLOCK_C, scale=1.0):
     # two-phase evaluation: the chunk-end states first, via one cheap
     # mat-vec (the Toeplitz's last column, a^(C-1-j)) -- NOT by slicing
     # the full zero-state response z out of a materialized GEMM result.
-    # z is as large as the signal; at batch 512 its HBM round-trip was
-    # ~1/3 of the op.  With ends known, the carry chain resolves and the
-    # final GEMM emits y directly, its +carry epilogue fused by XLA.
+    # z is as large as the signal, so its round-trip through memory
+    # would be a whole extra pass.  With ends known, the carry chain
+    # resolves and the final GEMM emits y directly, its +carry epilogue
+    # fused by XLA.
     #
     # carry recurrence over chunks: e_k = a^C e_{k-1} + z[k, -1], e_{-1}=y0.
     # This is itself a constant-coefficient first-order recurrence of
     # length K, so recurse: T=2.88M resolves as 2-3 matmul levels
-    # (11250 -> 44 -> direct) instead of a log-K Blelloch scan whose ~14
-    # dispatch-bound passes dominated the op's runtime on v5e.
-    from dsp_stuff_tpu.utils.precision import gemm_precision
-    if isinstance(a, (int, float, np.floating)):
-        # tap row l1 = |scale| sum |a|^d: the bf16x3 eligibility bound
-        l1 = float(abs(scale)
-                   * np.sum(np.abs(np.float32(a)) ** np.arange(C, dtype=np.float64)))
-    else:
-        l1 = None
-    gp = gemm_precision(l1)
-    # the ends mat-vec stays HIGHEST: it is bandwidth-bound (VPU
-    # reduction, no MXU mapping), so bf16x3 saves nothing there, and its
-    # output seeds the carry chain
+    # (11250 -> 44 -> direct) instead of a log-K Blelloch scan of ~14
+    # dependent passes.
     ends = jnp.einsum("...kc,c->...k", B, ends_taps,
                       preferred_element_type=f32,
                       precision=jax.lax.Precision.HIGHEST)  # [..., K]
@@ -286,7 +256,7 @@ def _first_order_blocked(a, b, y0, C: int = _BLOCK_C, scale=1.0):
     # carry correction as a fused epilogue
     y = jnp.einsum("...kc,cd->...kd", B, Lt,
                    preferred_element_type=f32,
-                   precision=gp) \
+                   precision=jax.lax.Precision.HIGHEST) \
         + carry_in[..., :, None] * pows[1:][None, :]
     return y.reshape(*batch, K * C)[..., :T].astype(f32)
 
@@ -338,24 +308,20 @@ def biquad_df1(x, a1, a2, b0, b1, b2, state=None):
         # concrete coefficients (the normal case): the blocked path builds
         # its impulse-response/Toeplitz/boundary constants in NumPy at
         # trace time — traced, they are per-call associative scans that
-        # XLA cannot fold or hoist (see first_order_affine).  NOTE: the
-        # concrete constants come from an f64 recurrence cast once, the
-        # traced path from f32 HIGHEST matrix chains — same fast-policy
-        # contract, ~1e-5-relative apart; fit-time (traced) renders and
-        # the baked re-render of the fitted values differ at that level.
+        # XLA cannot fold or hoist (see first_order_affine).  Both build
+        # the constants from an f64 recurrence cast once to f32.
         cf = tuple(float(np.float32(c)) for c in cvals)
         if cf[0] == 0.0 and cf[1] == 0.0:
             # a1 == a2 == 0: pure 3-tap FIR, one fused elementwise pass
-            # (2 HBM passes vs the blocked solver's 3).
+            # (2 passes over the signal vs the blocked solver's 3).
             return _biquad_pure_fir_static(x, cf, state)
         if cf[1] == 0.0 and cf[3] == 0.0 and cf[4] == 0.0:
             # a2 == b1 == b2 == 0: y[t] = b0 x[t] - a1 y[t-1], a scaled
             # first-order recurrence.  b0 folds into the trace-time tap
-            # constants so x feeds the GEMM directly -- a prescale pass
-            # (f = b0 x) measured perf-NEUTRAL vs the full biquad at
-            # batch 512 (XLA materializes f for the two einsum readers);
-            # the scalar ends/carry machinery only wins when the input
-            # is untouched.  The bench chain's biquad is this shape.
+            # constants so x feeds the GEMM directly -- with a prescale
+            # pass (f = b0 x) XLA would materialize f for the two einsum
+            # readers; the scalar ends/carry machinery only wins when the
+            # input is untouched.  The bench chain's biquad is this shape.
             return _biquad_degenerate_static(x, cf, state)
         return _biquad_blocked_static(x, cf, state)
     coeffs = tuple(jnp.asarray(c, jnp.float32) for c in cvals)
@@ -437,12 +403,14 @@ def _biquad_jit(x, coeffs, state, internal_dtype, sequential):
     f_t = jnp.moveaxis(f, -1, 0)                                    # [T, ...]
     v = jnp.stack([f_t, jnp.zeros_like(f_t)], axis=-1)              # [T, ..., 2]
     s0 = jnp.stack([y1.astype(dt), y2.astype(dt)], axis=-1)         # [..., 2]
-    v = v.at[0].add(jnp.einsum("ij,...j->...i", A_single, s0))
+    hi = jax.lax.Precision.HIGHEST
+    v = v.at[0].add(jnp.einsum("ij,...j->...i", A_single, s0, precision=hi))
 
     def combine(l, r):
         A1, v1 = l
         A2, v2 = r
-        return A2 @ A1, jnp.einsum("...ij,...j->...i", A2, v1) + v2
+        return (jnp.einsum("...ij,...jk->...ik", A2, A1, precision=hi),
+                jnp.einsum("...ij,...j->...i", A2, v1, precision=hi) + v2)
 
     _, s = jax.lax.associative_scan(combine, (A, v), axis=0)
     y = jnp.moveaxis(s[..., 0], 0, -1).astype(jnp.float32)          # [..., T]
@@ -514,18 +482,20 @@ def _vec2_recurrence(M, w, C2: int = 128, M_np=None):
     of C2 steps the zero-state response is one einsum against the masked
     power tensor  Lt2[j, i] = M^(i-j)  (a [C2, C2, 2, 2] constant), chunk
     carries recurse.  A K~22k associative scan of 2x2 matmuls was the
-    last remaining while-loop in the compiled chain (~0.4 ms/render).
+    last remaining while-loop in the compiled chain.
     ``M_np`` (a NumPy [2,2] mirror of M) makes the power tensors
     trace-time constants -- that case delegates to the n-dim solver
     (_vecn_recurrence); only the traced-M path (compile-time-unknown
-    coefficients, e.g. fitted biquads) lives here.
+    coefficients, e.g. fitted biquads) lives here.  A traced M may be
+    f64: its powers are formed in M's dtype and cast to f32 once, as the
+    concrete case's are.
     """
     if M_np is not None:
         return _vecn_recurrence(np.asarray(M_np), w, C2)
     f32 = jnp.float32
     K = w.shape[-2]
     if K <= 8:
-        Mb = jnp.broadcast_to(M, (*w.shape[:-1], 2, 2))
+        Mb = jnp.broadcast_to(M.astype(f32), (*w.shape[:-1], 2, 2))
 
         def combine(l, r):
             A1, v1 = l
@@ -549,11 +519,11 @@ def _vec2_recurrence(M, w, C2: int = 128, M_np=None):
 
     def mcomb(l, r):
         return jnp.einsum("...ij,...jk->...ik", r, l,
-                          preferred_element_type=f32,
                           precision=jax.lax.Precision.HIGHEST)
 
-    Mpow = jnp.concatenate([jnp.eye(2, dtype=f32)[None],
-                            jax.lax.associative_scan(mcomb, Mb, axis=0)])
+    Mpow_w = jnp.concatenate([jnp.eye(2, dtype=M.dtype)[None],
+                              jax.lax.associative_scan(mcomb, Mb, axis=0)])
+    Mpow = Mpow_w.astype(f32)
     i = jnp.arange(C2)
     Lt2 = jnp.where((i[:, None] <= i[None, :])[..., None, None],
                     Mpow[jnp.clip(i[None, :] - i[:, None], 0, C2)], 0.0)
@@ -564,7 +534,7 @@ def _vec2_recurrence(M, w, C2: int = 128, M_np=None):
 
     # carries across super-chunks: e_m = M^C2 e_{m-1} + zs[m, -1]
     ends = zs[..., :, C2 - 1, :]                           # [..., KG, 2]
-    e = _vec2_recurrence(Mpow[C2], ends, C2)               # [..., KG, 2]
+    e = _vec2_recurrence(Mpow_w[C2], ends, C2)             # [..., KG, 2]
     zero = jnp.zeros_like(e[..., :1, :])
     carry_in = jnp.concatenate([zero, e[..., :-1, :]], axis=-2)
     # fold: s[m, i] = zs[m, i] + M^(i+1) carry_in[m]
@@ -575,16 +545,16 @@ def _vec2_recurrence(M, w, C2: int = 128, M_np=None):
 
 
 def _biquad_blocked(x, a1, a2, b0, b1, b2, state, C: int = _BLOCK_C):
-    """Second-order recurrence as MXU matmuls (block-parallel IIR).
+    """Second-order recurrence as matmuls (block-parallel IIR).
 
     The full filter's truncated impulse response g[t] = b0 h[t] +
     b1 h[t-1] + b2 h[t-2] (h = recursive-part IR, h[0]=1) folds the
     numerator INTO the Toeplitz, so x feeds the GEMM directly -- no
-    feed-forward pass, no x-history concatenate (at batch 512 those two
-    elementwise passes were ~40% of the op).  Chunks of C:
+    feed-forward pass, no x-history concatenate (two elementwise passes
+    over the signal).  Chunks of C:
 
       * per-chunk zero-state response  z[k, i] = sum_{j<=i} g[i-j] x[k, j]
-        = (X @ Ltg)[k, i]  -- one batched GEMM on the MXU;
+        = (X @ Ltg)[k, i]  -- one batched GEMM;
       * EVERY chunk's f[k, 0] / f[k, 1] reach back two samples into the
         previous chunk (chunk 0 into the carried x1, x2), contributing
         d0[k] h[i] + d1[k] h[i-1] with d0 = b1 x[k-1, C-1] + b2 x[k-1,
@@ -605,8 +575,8 @@ def _biquad_blocked(x, a1, a2, b0, b1, b2, state, C: int = _BLOCK_C):
 
     # truncated impulse response h[0..C] of y[t] = -a1 y[t-1] - a2 y[t-2].
     # Concrete coefficients: NumPy f64 recurrence, cast once -- a
-    # trace-time constant.  Traced: associative scan over companion-matrix
-    # powers (a C-step sequential lax.scan here measured ~430 us/render).
+    # trace-time constant.  Traced: f64 associative scan over
+    # companion-matrix powers (not a C-step sequential lax.scan), cast once.
     if concrete:
         h64 = np.empty(C + 1, np.float64)
         h64[0] = 1.0
@@ -623,21 +593,31 @@ def _biquad_blocked(x, a1, a2, b0, b1, b2, state, C: int = _BLOCK_C):
         g_np = g64.astype(np.float32)
         g = jnp.asarray(g_np)
     else:
-        A1 = jnp.stack([jnp.stack([-a1, -a2]),
-                        jnp.asarray([1.0, 0.0], f32)])     # [2, 2]
+        # Traced coefficients (fitting): the same f64 IR as the concrete
+        # branch, cast once.  An f32 chain of companion-matrix powers
+        # would drift in h by 26x the cast error on the CPU and 100x on
+        # an H100, enough to set the filter's error: -89 and -83 dBFS vs
+        # the exact response for a resonant biquad, against -104 and -98
+        # with the f64 IR.
+        f64 = jnp.float64
+        a1d, a2d = jnp.asarray(a1, f64), jnp.asarray(a2, f64)
+        A1 = jnp.stack([jnp.stack([-a1d, -a2d]),
+                        jnp.asarray([1.0, 0.0], f64)])     # [2, 2]
         Ab = jnp.broadcast_to(A1, (C, 2, 2))
 
         def h_combine(l, r):
             return jnp.einsum("...ij,...jk->...ik", r, l,
-                              preferred_element_type=f32,
                               precision=jax.lax.Precision.HIGHEST)
 
         Apow = jax.lax.associative_scan(h_combine, Ab, axis=0)  # A^1..A^C
         # h[t] = (A^t)[0, 0] applied to h-state [h0, h_-1] = [1, 0]
-        h = jnp.concatenate([jnp.ones((1,), f32), Apow[:, 0, 0]])   # [C+1]
-        zero1 = jnp.zeros((1,), f32)
-        g = (b0 * h + b1 * jnp.concatenate([zero1, h[:-1]])
-             + b2 * jnp.concatenate([zero1, zero1, h[:-2]]))
+        h64 = jnp.concatenate([jnp.ones((1,), f64), Apow[:, 0, 0]])  # [C+1]
+        zero1 = jnp.zeros((1,), f64)
+        g64 = (jnp.asarray(b0, f64) * h64
+               + jnp.asarray(b1, f64) * jnp.concatenate([zero1, h64[:-1]])
+               + jnp.asarray(b2, f64) * jnp.concatenate(
+                   [zero1, zero1, h64[:-2]]))
+        h, g = h64.astype(f32), g64.astype(f32)
         g_np = None
 
     K = -(-T // C)
@@ -652,14 +632,10 @@ def _biquad_blocked(x, a1, a2, b0, b1, b2, state, C: int = _BLOCK_C):
     # responses z[k, C-1] / z[k, C-2] (reversed-g rows), columns 2/3
     # pick the raw samples x[k, C-1] / x[k, C-2] that the NEXT chunk's
     # numerator reaches back to (one-hots).  This replaces both the
-    # materialized z (a signal-sized HBM round-trip: z fed the epilogue
+    # materialized z (a signal-sized round-trip: z fed the epilogue
     # AND the w columns, which blocked output fusion) and the
-    # stride-C column reads for the reach-back (3.1 ms alone at batch
-    # 512 -- a strided column touches every 512-byte sector of the
-    # array).  Whole-op: 10.1 vs 11.0 ms at batch 512 x 10 s.  (An
-    # earlier two-phase variant with SEPARATE ends/reach-back passes
-    # measured slower, 32.0 vs 28.8 ms per 4 renders -- sharing the one
-    # side mat-vec is what tips it.)
+    # stride-C column reads for the reach-back (a strided column touches
+    # every sector of the array).
     if concrete:
         i = np.arange(C)
         Ltg = jnp.asarray(np.where(
@@ -682,10 +658,6 @@ def _biquad_blocked(x, a1, a2, b0, b1, b2, state, C: int = _BLOCK_C):
                               jnp.zeros((1,), f32)]),
              jnp.zeros((C,), f32).at[C - 1].set(1.0),
              jnp.zeros((C,), f32).at[C - 2].set(1.0)], axis=-1)
-    from dsp_stuff_tpu.utils.precision import gemm_precision
-    gp = gemm_precision(float(np.abs(g_np).sum()) if concrete else None)
-    # side mat-vec stays HIGHEST: bandwidth-bound, and it feeds the
-    # boundary-state recurrence
     side = jnp.einsum("...kc,cj->...kj", X, S,
                       preferred_element_type=f32,
                       precision=jax.lax.Precision.HIGHEST)  # [..., K, 4]
@@ -713,12 +685,14 @@ def _biquad_blocked(x, a1, a2, b0, b1, b2, state, C: int = _BLOCK_C):
         M = jnp.asarray(M_np)
     else:
         M_np = None
-        M = jnp.stack([jnp.stack([h[C], -a2 * h[C - 1]]),
-                       jnp.stack([h[C - 1], -a2 * h[C - 2]])])   # [2, 2]
+        M = jnp.stack([jnp.stack([h64[C], -a2d * h64[C - 1]]),
+                       jnp.stack([h64[C - 1], -a2d * h64[C - 2]])])  # f64
+    M32 = M.astype(f32)
     s0 = jnp.stack([jnp.broadcast_to(jnp.asarray(y1, f32), batch),
                     jnp.broadcast_to(jnp.asarray(y2, f32), batch)],
                    axis=-1)                                # [..., 2]
-    w = w.at[..., 0, :].add(jnp.einsum("ij,...j->...i", M, s0))
+    w = w.at[..., 0, :].add(jnp.einsum("ij,...j->...i", M32, s0,
+                                       precision=jax.lax.Precision.HIGHEST))
     s = _vec2_recurrence(M, w, M_np=M_np)
     # carry INTO chunk k is s_{k-1} (s0 for k = 0)
     s_in = jnp.concatenate([s0[..., None, :], s[..., :-1, :]], axis=-2)
@@ -728,7 +702,7 @@ def _biquad_blocked(x, a1, a2, b0, b1, b2, state, C: int = _BLOCK_C):
     # + IC response + cross-chunk numerator corrections
     y = (jnp.einsum("...kc,cd->...kd", X, Ltg,
                     preferred_element_type=f32,
-                    precision=gp)
+                    precision=jax.lax.Precision.HIGHEST)
          + s_in[..., :, 0:1] * h[1:][None, :]
          - a2 * s_in[..., :, 1:2] * h[:-1][None, :]
          + d0[..., :, None] * h[:C][None, :]

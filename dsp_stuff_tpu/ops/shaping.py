@@ -32,18 +32,8 @@ def _trans(fn, v):
     ~20 ulp off the correctly-rounded value; Rust's libm is <= 1 ulp.  Under
     the 'parity'/'exact' policies we evaluate in f64 and round, landing
     within ~1 ulp of the reference (-approx 138 dBFS at full scale); 'fast'
-    keeps native f32 (-approx 87 dBFS worst case, still inaudible).
-
-    Inside a Pallas kernel body (the chain megakernel's VMEM-resident
-    stages) the Mosaic lowering lacks tanh/atan/sin primitives; the
-    ops/pallas_math substitutions take over -- fast policy only, each
-    within ~1e-9..1e-7 of the XLA kernel it replaces."""
+    keeps native f32 (-approx 87 dBFS worst case, still inaudible)."""
     if get_policy().name == "fast":
-        from dsp_stuff_tpu.ops import pallas_math
-        if pallas_math.substituted():
-            safe = pallas_math.SAFE.get(fn.__name__)
-            if safe is not None:
-                return safe(v)
         return fn(v)
     return fn(v.astype(jnp.float64)).astype(jnp.float32)
 
@@ -64,9 +54,9 @@ def _tanh(v):
     """tanh with the argument clamped to |v| <= 20.
 
     tanh(v) rounds to f32 1.0 for every |v| > ~9.6, so the clamp is
-    bit-invisible in the f32 result; it exists because XLA's f64 tanh
-    (and the TPU's emulated f64 in particular) returns garbage/NaN in the
-    far-saturated tail (observed: tanh(88.)=0.0, tanh(90.)=NaN on v5e).
+    bit-invisible in the f32 result; it exists because a backend's f64
+    tanh may return garbage/NaN in the far-saturated tail (an emulated
+    f64 has returned tanh(88.)=0.0, tanh(90.)=NaN).
     NaN inputs propagate (clip keeps NaN)."""
     return _trans(jnp.tanh, jnp.clip(v, -20.0, 20.0))
 
@@ -108,7 +98,8 @@ def tanh_clip(x, level):
 def recip_soft_clip(x, level):
     """sign(x) * (1 - 1/(|x|*level + 1)) (distort.rs:96-102)."""
     level = jnp.asarray(level, _F32)
-    shaped = jnp.sign(x) * (1.0 - 1.0 / (exact_mul(jnp.abs(x), level) + 1.0))
+    shaped = jnp.sign(x) * (1.0 - exact_div(1.0, exact_mul(jnp.abs(x), level)
+                                             + 1.0))
     return _bypass(level, shaped, x)
 
 
@@ -197,9 +188,7 @@ def chebyshev_asym(x, level_pos, level_neg):
     the exact ops of the taken branch (where/tanh/div are not subject to
     FMA recontraction), so it is bit-identical to the two-branch form
     under every policy; the denominators stay per-branch (free for scalar
-    levels, and 3 passes instead of 4 for audio-rate modulated ones).
-    Measured in the chain megakernel at batch 512 x 10 s: the chebyshev
-    stage fell from ~19.5 to ~10.5 ms (native Mosaic tanh ~9.7 ms/pass)."""
+    levels, and 3 passes instead of 4 for audio-rate modulated ones)."""
     lp = jnp.asarray(level_pos, _F32)
     ln = jnp.asarray(level_neg, _F32)
     pos_side = x >= 0.0

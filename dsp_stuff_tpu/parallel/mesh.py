@@ -1,17 +1,18 @@
-"""Multi-chip scaling: shard the stream/batch axis over a TPU mesh.
+"""Multi-device scaling: shard the stream/batch axis over a device mesh.
 
 The reference is single-process with intra-process SPSC pipes as its only
-"communication backend" (SURVEY.md section 5).  The TPU-native equivalent
-is pure data parallelism over independent audio streams: the compiled
-render program is vmapped over ``[stream]`` and the stream axis is sharded
-across the mesh with ``jax.sharding.NamedSharding`` -- XLA inserts no
-collectives for the forward render (streams are independent), and ICI
-all-reduce appears only in the differentiable fitting path (train/fit.py)
-where gradients reduce over the batch.
+"communication backend" (SURVEY.md section 5).  The equivalent here is
+pure data parallelism over independent audio streams: the compiled render
+program is vmapped over ``[stream]`` and the stream axis is sharded across
+a flat 1-D ``("streams",)`` mesh with ``jax.sharding.NamedSharding``.  XLA
+inserts no collectives for the forward render (streams are independent);
+an all-reduce appears only in the differentiable fitting path
+(train/fit.py) where gradients reduce over the batch, and on GPUs XLA
+hands it to NCCL over NVLink.  The cards of one host are joined all to
+all, so the mesh follows the algorithm alone.
 
-Sequence-axis sharding is deliberately not used: at 48 kHz a chip processes
-thousands of seconds of audio per wall-second, so the batch axis is where
-the scale is (SURVEY.md section 5 "long-context" note).
+Sequence-axis sharding is deliberately not used: at 48 kHz the batch axis
+is where the scale is (SURVEY.md section 5 "long-context" note).
 """
 
 from __future__ import annotations

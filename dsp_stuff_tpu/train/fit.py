@@ -1,7 +1,7 @@
 """Differentiable parameter fitting: optimize a graph's sliders by gradient.
 
 This subsystem has no analog in the reference (its knobs are hand-turned in
-the egui UI) — it exists because the TPU-native design makes the whole
+the egui UI) — it exists because the compiled design makes the whole
 effect graph a pure differentiable function.  Uses:
 
 * match a target sound: fit distortion/filter settings so the rendered
@@ -11,9 +11,9 @@ effect graph a pure differentiable function.  Uses:
 The compiled graph exposes its non-static sliders as a pytree
 (``CompiledGraph.init_params``); the loss renders the graph with candidate
 parameters and measures distance to the target.  Everything jits to a
-single XLA program per optimization step; with a sharded batch the gradient
-all-reduce rides ICI automatically (XLA inserts ``psum`` from the sharding,
-parallel/mesh.py).
+single XLA program per optimization step; with a sharded batch XLA inserts
+the gradient all-reduce (``psum``) from the sharding (parallel/mesh.py),
+which runs over NCCL on GPUs.
 """
 
 from __future__ import annotations
@@ -105,8 +105,8 @@ def make_sharded_train_step(cg: CompiledGraph, mesh, optimizer=None,
                             axis: str = "streams"):
     """Training step jitted over a device mesh: batch (ext/target leading
     axis) sharded across ``axis``, parameters/optimizer state replicated.
-    XLA inserts the gradient all-reduce (psum over ICI) from the shardings
-    — the scaling-book recipe, no explicit collectives.
+    XLA inserts the gradient all-reduce (psum, NCCL on GPUs) from the
+    shardings — no explicit collectives.
 
     Returns (step_jitted, opt_init); call as
         step(params, opt_state, state, ext, target)

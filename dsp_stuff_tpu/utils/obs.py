@@ -3,7 +3,7 @@
 The reference's stack (SURVEY.md section 5): tracing-subscriber fmt layer
 with span-close durations, EnvFilter (default "dsp_stuff=info"),
 tokio-console task profiler, and #[tracing::instrument] on every
-process().  TPU analogs here:
+process().  Analogs here:
 
 * ``logger`` / env filter: std logging, level from $DST_LOG (RUST_LOG
   analog), default INFO;
@@ -12,7 +12,9 @@ process().  TPU analogs here:
 * ``debug_render``: eager node-by-node evaluation that reports per-node
   output stats (max/rms/NaN count) and wall time — the analog of per-span
   durations, plus the NaN detection Rust's runtime never needed;
-* ``nan_guard``: wraps a compiled fn and raises if outputs go non-finite.
+* ``nan_guard``: wraps a compiled fn and raises if outputs go non-finite;
+* ``card_name_and_power_limit``: the GPUs' name and power limit, to write
+  beside every measured number.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from __future__ import annotations
 import contextlib
 import logging
 import os
+import subprocess
 import time
 
 import jax
@@ -127,3 +130,11 @@ def nan_guard(fn, name: str = "fn"):
                     f"{int(np.isinf(arr).sum())} Inf)")
         return out
     return inner
+
+
+def card_name_and_power_limit() -> str:
+    """nvidia-smi's name and power limit for the cards, one per line."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"],
+                       capture_output=True, text=True, check=True)
+    return r.stdout.strip()

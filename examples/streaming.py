@@ -56,7 +56,7 @@ dev = np.concatenate(device_chunks)
 print(f"device-rate drain: {dev.size // 2} stereo frames @ 44.1 kHz, "
       f"peak {np.abs(dev).max():.3f}")
 
-# pipelined mode: k blocks per dispatch (the remote-TPU streaming mode)
+# pipelined mode: k blocks per dispatch
 sess3 = StreamSession(g)
 y3 = sess3.process_many({str(inp.id): sig[:128 * 300]})
 print(f"process_many: {y3.shape[-1]} samples in one dispatch")

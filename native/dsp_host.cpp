@@ -1,6 +1,6 @@
 // dsp_host: native host-side runtime for dsp_stuff_tpu.
 //
-// The TPU-native analog of the reference's device layer
+// The host-side analog of the reference's device layer
 // (/root/reference/dsp-stuff/src/devices.rs): WAV decode/encode with
 // sample-format conversion (devices.rs:264-352 converts i8..f64 <-> f32),
 // a 16-tap windowed-sinc resampler (the output path resamples 48 kHz ->

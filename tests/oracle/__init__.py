@@ -230,6 +230,27 @@ def fir(x, taps_rev, mode="Balanced", state=None):
     return out, state
 
 
+def fir_vectorized(x, taps_rev, mode="Balanced"):
+    """fir() from a fresh state, vectorized in f64 for long IRs: sample
+    g < n-1 (warm-up) is the running sum of x[k] * taps_rev[k], k <= g;
+    from g = n-1 on, the dot of the last n inputs (oldest first) with
+    taps_rev, i.e. a correlation, taken by an f64 FFT."""
+    taps = np.asarray(taps_rev, np.float64)
+    n = len(taps)
+    x64 = np.asarray(x, F32).astype(np.float64)
+    T = len(x64)
+    divisor = F32(1.0 / n) if mode == "Average" else F32(1.0)
+    acc = np.empty(T, np.float64)
+    w = min(n - 1, T)
+    acc[:w] = np.cumsum(x64[:w] * taps[:w])
+    if T >= n:
+        nfft = 1 << (T + n - 1).bit_length()
+        corr = np.fft.irfft(np.fft.rfft(x64, nfft)
+                            * np.fft.rfft(taps[::-1], nfft), nfft)
+        acc[n - 1:] = corr[n - 1:T]
+    return (acc.astype(F32) * divisor).astype(F32)
+
+
 def reverb(x, seconds, decay, ring=None):
     """reverb.rs:76-111: y[n] = x[n] + decay*y[n-D], D zeros pre-fill."""
     D = max(int(F32(seconds) * F32(48000.0)), 128)
@@ -337,9 +358,37 @@ def oversampled(fn, x, R, *args):
     return _conv_center(yu, h, stride=R)[:T].astype(F32)
 
 
+def chain10(x, reverb_seconds=0.05):
+    """Sequential reference of models.presets.chain10: every hop applies
+    the single-pipe fan-in scale 1/(1+1e-4) (node.rs:173-192)."""
+    def h(v):
+        return (v / F32(F32(1.0) + F32(0.0001))).astype(F32)
+
+    v = h(np.asarray(x, F32))
+    v = (v * F32(1.2)).astype(F32)                       # gain
+    v, _ = biquad_df1(h(v), 1.0, -0.24, 0.0, 0.758, 0.0, 0.0)
+    v = overdrive(h(v), 4.0, 0.6, 0.9)
+    v, _ = low_pass(h(v), 0.6)
+    v, _ = high_pass(h(v), 0.2)
+    v = tanh_clip(h(v), 3.0)
+    v = chebyshev_asym(h(v), 2.0, 4.0)
+    v, _ = reverb(h(v), reverb_seconds, 0.4)
+    return h(v)                                          # output fan-in
+
+
 def max_err_dbfs(a, b):
     """20*log10(max |a-b|); -inf when identical."""
     err = np.max(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)))
     if err == 0:
         return -np.inf
     return 20.0 * np.log10(err)
+
+
+def rel_err_db(got, want):
+    """Max abs error relative to the reference's peak, in dB (-600 when
+    identical)."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    err = np.abs(got - want).max()
+    den = max(float(np.abs(want).max()), 1e-9)
+    return float(20.0 * np.log10(max(err, 1e-30) / den))

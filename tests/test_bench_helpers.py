@@ -1,14 +1,17 @@
 """bench.py must keep its contract: one JSON line, roofline math sane.
 
-The driver runs bench.py on the real chip; these CPU tests only guard the
-pure helpers so a refactor cannot silently break the reported fields.
+bench.py runs on an NVIDIA GPU; these CPU tests only guard the pure
+helpers so a refactor cannot silently break the reported fields.
 """
 
 import numpy as np
+import pytest
 
 
-def test_pct_roofline_math():
+def test_pct_roofline_math(monkeypatch):
     import bench
+    monkeypatch.setattr(bench, "HBM_GBPS",
+                        bench.PEAKS["NVIDIA H100 80GB HBM3"]["hbm_gbps"])
     # 1000x realtime on a mono in/out config moves 2*48000*4 B per
     # audio-second -> 384 MB/s of I/O floor
     pct = bench._pct_roofline(1000.0, 1, 1)
@@ -21,9 +24,11 @@ def test_pct_roofline_math():
 
 
 def test_oracle_chain_matches_graph_parity():
-    """The bench's inline oracle agrees with a parity render of its own
-    chain on a short signal (the full-length check runs on-chip)."""
+    """The chain's oracle (tests/oracle.chain10) agrees with a parity
+    render of the bench's chain on a short signal (the full-length check
+    runs on the GPU)."""
     import bench
+    import oracle
     import dsp_stuff_tpu as dst
     from dsp_stuff_tpu.utils import precision
     g, inp_id = bench.build_chain()
@@ -33,7 +38,7 @@ def test_oracle_chain_matches_graph_parity():
         cg = dst.compile_graph(g)
         outs, _, _ = cg.render({str(inp_id): x})
     got = np.asarray(outs)[0]
-    want = bench.oracle_chain(x)
+    want = oracle.chain10(x)
     err = np.max(np.abs(got.astype(np.float64) - want.astype(np.float64)))
     dbfs = 20 * np.log10(err) if err > 0 else -np.inf
     assert dbfs <= -90.0, dbfs
@@ -51,14 +56,24 @@ def test_max_throughput_metric_runs(monkeypatch):
     assert gbps is None or gbps > 0.0
 
 
-def test_await_backend_success_and_exhaustion(monkeypatch):
-    """The outage watchdog: a healthy backend returns None immediately; a
-    hung/failed probe exhausts the budget and reports the last failure."""
+def test_device_peaks_refuses_cpu_and_unknown_kind():
+    """The peak table is keyed by device kind; a CPU device or a kind the
+    table lacks is an error, never a default."""
+    import jax
     import bench
-    assert bench._await_backend(max_wait=300) is None   # this env is up
-    monkeypatch.setattr(bench, "PROBE_TIMEOUT_S", 0.01)
-    err = bench._await_backend(max_wait=0.0)
-    assert err is not None and "probe" in err
+
+    class FakeGpu:
+        platform = "gpu"
+        device_kind = "NVIDIA H100 80GB HBM3"
+
+    class UnknownGpu(FakeGpu):
+        device_kind = "Some Other GPU"
+
+    assert bench.device_peaks(FakeGpu())["hbm_gbps"] == 3350.0
+    with pytest.raises(KeyError):
+        bench.device_peaks(UnknownGpu())
+    with pytest.raises(RuntimeError):
+        bench.device_peaks(jax.devices("cpu")[0])
 
 
 def test_gbps_and_bytes_helpers():

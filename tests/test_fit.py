@@ -78,10 +78,11 @@ def test_fit_recovers_gain():
     assert float(params[str(gn.id)]["level"]) == pytest.approx(2.5, abs=0.02)
 
 
-def test_train_step_sharded_mesh():
+def test_train_step_sharded_mesh(monkeypatch, tmp_path):
     """One training step with the batch sharded over all (8 virtual) devices:
-    the dryrun_multichip path."""
+    the dryrun_multichip path (its compile cache kept out of the repo)."""
     import sys, os
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     import __graft_entry__

@@ -11,7 +11,6 @@ nobody hand-wrote."""
 import numpy as np
 import pytest
 
-from conftest import bitwise_cpu_only
 
 import dsp_stuff_tpu as dst
 from dsp_stuff_tpu.ids import IdSpace
@@ -182,11 +181,9 @@ def test_random_graph_batch_invariance(seed):
     with precision.policy("fast"):
         outs, _, _ = dst.render(g, {str(inp_id): x}, batch_shape=(4,))
         solo, _, _ = dst.render(g, {str(inp_id): x[0]})
-    # batched-vs-solo lowerings differ on chip (vmapped GEMM tiling,
-    # megakernels at batch): bf16-pass class, measured 2.6e-6 abs
-    from conftest import ON_TPU
+    # batched-vs-solo lowerings: 1-ulp class (CPU and H100 alike)
     np.testing.assert_allclose(np.asarray(outs)[0], np.asarray(solo),
-                               rtol=0, atol=4e-5 if ON_TPU else 2e-6)
+                               rtol=0, atol=2e-6)
 
 
 @pytest.mark.parametrize("seed", [1, 5, 13])
@@ -211,7 +208,6 @@ def test_random_graph_segmented_state_chaining(seed):
 
 
 @pytest.mark.parametrize("seed", [4, 9, 16, 25, 36, 49, 64, 81, 100, 121, 169, 196])
-@bitwise_cpu_only
 def test_random_graph_exact_bitwise(seed):
     """The exact policy's BITWISE claim, fuzzed: random topologies over
     the reassociation-free node pool (PARITY.md scope) must reproduce the
@@ -228,7 +224,6 @@ def test_random_graph_exact_bitwise(seed):
 
 
 @pytest.mark.parametrize("seed", [9, 25, 49])
-@bitwise_cpu_only
 def test_random_graph_exact_segmented_bitwise(seed):
     """Under the exact policy, state chaining is BITWISE: two half-renders
     must equal the one-shot render bit for bit (sequential recurrences +
@@ -376,9 +371,7 @@ def test_random_linear_chain_segmented_state_carry(seed):
     render: every run shape's composite-state handoff (one-pole
     components, the biquad DirectForm1 rebuild from run histories) at
     once.  CPU bound -100 dBFS (blocked lowerings reassociate when T
-    changes); on TPU the bf16x3 GEMMs add block-alignment re-rounding
-    (-10x class), same note as test_biquad_blocked_state_carry_fast."""
-    from conftest import ON_TPU
+    changes), on the CPU and an H100 alike."""
     g, inp_id, out_id = _random_linear_chain_graph(seed)
     rng = np.random.default_rng(9000 + seed)
     x = (rng.standard_normal(T) * 0.25).astype(np.float32)
@@ -390,8 +383,7 @@ def test_random_linear_chain_segmented_state_carry(seed):
         b, _, _ = cg.render({str(inp_id): x[half:]}, state=st)
     got = np.concatenate([np.asarray(a)[0], np.asarray(b)[0]])
     db = oracle.max_err_dbfs(got, np.asarray(full)[0])
-    bound = -90.0 if ON_TPU else -100.0
-    assert db <= bound, f"seed {seed}: {db:.1f} dBFS"
+    assert db <= -100.0, f"seed {seed}: {db:.1f} dBFS"
 
 
 def _plan_for(g):
@@ -501,7 +493,6 @@ def test_feedback_linear_fusion_fuzz_not_vacuous():
 
 
 @pytest.mark.parametrize("seed", [0, 3, 7, 10])
-@bitwise_cpu_only
 def test_random_feedback_linear_exact_bitwise(seed):
     """The same cycle shapes under the exact policy (fusion disabled by
     policy) stay BITWISE against the oracle — fusing under fast must not
@@ -621,7 +612,7 @@ def test_random_linear_chain_streaming_matches_offline(seed):
 
 
 # ---------------------------------------------------------------------------
-# round-5: JOINT megakernel-planner fuzz (verdict #7).  Graphs where mega
+# JOINT fusion-planner fuzz.  Graphs where
 # chain segments (with shaper + comb members and tap stages), fused cycle
 # block programs AND linear runs can all fire on the same topology,
 # checked against the oracle under the fast policy.  Engagement is proven
@@ -736,12 +727,8 @@ def test_random_mega_cycle_fast_vs_oracle(seed):
     want = oracle_graph.evaluate(g, {inp_id: x}, T)[out_id]
     assert np.isfinite(want).all(), "oracle blew up — bad generator params"
     db = oracle.max_err_dbfs(np.asarray(got)[0], want)
-    # On chip the intrinsic fast-f32 class through random feedback
-    # topologies reaches -75..-77 dBFS (seed 0 measured: fused -77.4,
-    # per-node scan -75.5 — the UNFUSED path is the worse one, so this
-    # is backend conditioning, not a fusion bug); CPU keeps -80.
-    from conftest import ON_TPU
-    assert db <= (-72.0 if ON_TPU else -80.0), f"seed {seed}: {db:.1f} dBFS"
+    # the fast policy's bound (the same on the CPU and an H100)
+    assert db <= -80.0, f"seed {seed}: {db:.1f} dBFS"
 
 
 def test_mega_cycle_fuzz_not_vacuous():
